@@ -1,0 +1,14 @@
+"""internlm2-1.8b [arXiv:2403.17297; hf]. Dense GQA decoder."""
+
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="internlm2-1.8b",
+    family="dense",
+    n_layers=24,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab=92_544,
+)
