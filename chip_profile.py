@@ -8,10 +8,13 @@ Run from the root of a checkout, with no arguments::
 Serves ``chip_smoke.py``'s B and C tenants on full-width internlm2-1.8b
 (random bf16 weights from a seed) through the port's MURS engine and the
 f32 paged-decode kernel, under ``torch.profiler``.  Prints one JSON line
-with the device's busy share of the window and the kernels that take the
-most device time, then the ``nvidia-smi`` name and power limit.  The
-profiler's own host cost lengthens the window, so the busy share is a
-lower bound; it is null where the profiler saw no device time.
+with the device's busy share of the window, the kernels that take the
+most device time, and the PyTorch operators (with their input shapes)
+whose own device time is largest — which tells a dtype cast of the
+unembedding weight from one of an activation — then the ``nvidia-smi``
+name and power limit.  The profiler's own host cost lengthens the window,
+so the busy share is a lower bound; it is null where the profiler saw no
+device time.
 """
 
 import sys
@@ -40,8 +43,8 @@ def main() -> int:
     smoke.drive(*smoke.serve_engine(cfg, params, ("B",), False))
     eng, sched = smoke.serve_engine(cfg, params, ("B", "C"), False)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         ticks = smoke.drive(eng, sched)
         torch.cuda.synchronize()
@@ -54,12 +57,18 @@ def main() -> int:
                              + evt.time_range.elapsed_us())
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.self_device_time_total > 0]
+    top_ops = sorted(ops, key=lambda e: -e.self_device_time_total)[:10]
     smoke.emit({"phase": "profile", "ticks": len(ticks),
                 "wall_ms": wall_us / 1e3,
                 "device_busy_ms": busy / 1e3 if busy else None,
                 "device_busy_share": busy / wall_us if busy else None,
                 "kernel_launches": len(cuda),
-                "top_kernels_ms": [[n[:90], us / 1e3] for n, us in top]})
+                "top_kernels_ms": [[n[:90], us / 1e3] for n, us in top],
+                "top_ops_self_device_ms": [
+                    [e.key, str(e.input_shapes)[:120], e.count,
+                     e.self_device_time_total / 1e3] for e in top_ops]})
     print(smoke.nvidia_smi(), flush=True)
     return 0
 

@@ -12,9 +12,10 @@ from .base import (
     ShapeConfig,
     SHAPES,
 )
+from .gemma3_1b import CONFIG as gemma3_1b
 from .internlm2_1_8b import CONFIG as internlm2_1_8b
 
-ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [internlm2_1_8b]}
+ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [internlm2_1_8b, gemma3_1b]}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -2,9 +2,11 @@
 
 Each source is compiled on its own for ``sm_90a`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
-keyed by a hash of the source and the flags, under ``build/repro_torch/``
-at the root of the checkout.  The build runs at first use; importing this
-module builds nothing.
+keyed by a hash of the source, the shared ``csrc/*.cuh`` headers and the
+flags, under ``build/repro_torch/``
+at the root of the checkout.  The build runs at first use, or for every
+source at once through :func:`build` (one nvcc per source, all started
+together); importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -27,8 +31,10 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
-#: C signature of every exported function: name -> argtypes (restype int)
+#: C signature of every exported function, by source: name -> argtypes
+#: (restype int, the launch's cudaError)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "paged_decode": {
         "launch_paged_decode": [_P, _P, _P, _P, _P, _P,
@@ -36,7 +42,17 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "launch_paged_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _F, _I, _P],
     },
+    "flash_attention": {
+        "launch_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   *[_L] * 12, _I, _I, _I, _F, _I, _P],
+    },
+    "decode_attention": {
+        "launch_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    *[_L] * 8, _I, _F, _I, _P],
+    },
 }
+#: the kernels' dtype codes (the ``dtype`` argument of every launch)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -57,32 +73,41 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library path, keyed by the source, the shared headers it may
+    include, and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
-def _build(name: str) -> Path:
-    """The library of ``csrc/<name>.cu``, compiled unless already built;
-    raises with nvcc's output on a failed build."""
-    so = _target(name)
-    if so.exists():
-        return so
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> None:
+    """Compile every named source that is not built yet: one nvcc per
+    source, all started together and all waited for; then raises with
+    nvcc's output if any of them failed."""
+    started = []
+    for name in names:
+        so = _target(name)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-    os.replace(tmp, so)
-    return so
+        started.append((name, so, tmp, proc))
+    failed = []
+    for name, so, tmp, proc in started:
+        log = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, so)
+        else:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):"
+                          f"\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -91,9 +116,29 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_build(name)))
+            build((name,))
+            lib = ctypes.CDLL(str(_target(name)))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
             _loaded[name] = lib
         return lib
+
+
+def raise_on_launch_error(err: int, fn: str) -> None:
+    """Raise if a launch function returned a non-zero cudaError."""
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
+
+
+def row_strides(t: torch.Tensor, what: str) -> List[int]:
+    """Element strides of every dimension of ``t`` but the last (0 for a
+    dimension of size 1), after checking what the kernels' 16-byte loads
+    need: a contiguous last dimension and every row 16-byte aligned.
+    Raises ``ValueError`` otherwise."""
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{what}: the last dimension must be contiguous")
+    strides = [0 if n == 1 else s for n, s in zip(t.shape[:-1], t.stride()[:-1])]
+    if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in strides):
+        raise ValueError(f"{what}: rows must be 16-byte aligned")
+    return strides

@@ -42,36 +42,17 @@
 // of one kv head, TMA page loads into shared memory, and splitting the page
 // sweep across CTAs when BH is small.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using repro_torch::kNegInf;
+using repro_torch::load8;
+
 constexpr int kVec = 8;  // elements per lane chunk
 constexpr int kUnroll = 4;  // tokens per lane group in flight
 constexpr int kWarps = 8;   // warps per row, each sweeping every 8th page
 constexpr int kMaxHd = 256;
-
-__device__ __forceinline__ void load8(const float* p, float (&x)[kVec]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&x)[kVec]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
 
 __device__ __forceinline__ void load8(const int8_t* p, float (&x)[kVec]) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);

@@ -1,20 +1,58 @@
 """Dispatch by device: the plain version for CPU tensors, the CUDA kernel
 for CUDA tensors.  There is no fallback: a CUDA tensor the kernel cannot
-take raises."""
+take raises.  The one way to run a plain version on CUDA tensors is the
+scoped :func:`plain_on_card`, for comparisons; the engine and the models
+never enter it."""
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from typing import Iterator
+
 import torch
 
+from . import decode_attention as _decode
+from . import flash_attention as _flash
 from . import paged_decode, ref
+
+#: every kernel wrapper, for counting and resetting launches
+WRAPPERS = (
+    paged_decode.paged_decode_attention,
+    paged_decode.paged_decode_attention_int8,
+    _flash.flash_attention,
+    _decode.decode_attention,
+)
+
+#: True inside :func:`plain_on_card` (per thread and task, not global)
+_PLAIN = contextvars.ContextVar("plain_on_card", default=False)
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+@contextlib.contextmanager
+def plain_on_card() -> Iterator[None]:
+    """Inside this block CUDA tensors take the plain versions too, and no
+    kernel launches (its counter does not move): the reference side of a
+    kernel-against-plain comparison on the card."""
+    token = _PLAIN.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN.reset(token)
 
 
 def _on_cpu(q: torch.Tensor) -> bool:
+    """True where the plain version runs: CPU tensors, or CUDA tensors
+    inside :func:`plain_on_card`."""
     if q.device.type == "cpu":
         return True
     if q.device.type == "cuda":
-        return False
-    raise ValueError(f"no paged-decode path for device {q.device}")
+        return _PLAIN.get()
+    raise ValueError(f"no kernel path for device {q.device}")
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens):
@@ -40,3 +78,26 @@ def paged_decode_attention_int8(
     return paged_decode.paged_decode_attention_int8(
         q, k_pool, v_pool, k_scales, v_scales, page_table, seq_lens
     )
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                    chunk=512):
+    """[B, H, Sq, hd] attention over grouped-query [B, KV, Sk, hd] K/V
+    (K3).  ``chunk`` is the plain version's query block; the kernel
+    tiles on its own."""
+    if _on_cpu(q):
+        return ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            chunk=chunk,
+        )
+    return _flash.flash_attention(
+        q, k, v, causal=causal, window=window, q_offset=q_offset
+    )
+
+
+def decode_attention(q, k, v, cur_pos, *, window=0):
+    """[B, H, hd] attention of one token per row over its slot's
+    [B, KV, S, hd] cache up to ``cur_pos[b]`` (K4)."""
+    if _on_cpu(q):
+        return ref.decode_attention_ref(q, k, v, cur_pos, window=window)
+    return _decode.decode_attention(q, k, v, cur_pos, window=window)

@@ -15,8 +15,7 @@ import math
 import torch
 
 from . import _build
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+from ._build import DTYPE_CODE, raise_on_launch_error
 
 
 def _check_common(q, k_pool, v_pool, page_table, seq_lens, pool_dtypes):
@@ -25,7 +24,7 @@ def _check_common(q, k_pool, v_pool, page_table, seq_lens, pool_dtypes):
         raise ValueError("paged decode kernel: every tensor must be on CUDA")
     if any(t.device != q.device for t in tensors):
         raise ValueError("paged decode kernel: tensors on different devices")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in DTYPE_CODE:
         raise TypeError(f"paged decode kernel: q dtype {q.dtype}")
     if k_pool.dtype not in pool_dtypes or v_pool.dtype != k_pool.dtype:
         raise TypeError(
@@ -54,11 +53,6 @@ def _check_common(q, k_pool, v_pool, page_table, seq_lens, pool_dtypes):
     return bh, hd, n_rows, page, page_table.shape[1]
 
 
-def _raise_on(err: int, fn: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
-
-
 def paged_decode_attention(
     q: torch.Tensor,  # [BH, hd] bf16 | f32
     k_pool: torch.Tensor,  # [n_rows, P, hd] q's dtype
@@ -78,9 +72,9 @@ def paged_decode_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             bh, w, page, hd, n_rows, 1.0 / math.sqrt(hd),
-            _DTYPE_CODE[q.dtype], stream,
+            DTYPE_CODE[q.dtype], stream,
         )
-    _raise_on(err, "paged_decode_attention")
+    raise_on_launch_error(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
 
@@ -114,20 +108,12 @@ def paged_decode_attention_int8(
             k_scales.data_ptr(), v_scales.data_ptr(),
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             bh, w, page, hd, n_rows, 1.0 / math.sqrt(hd),
-            _DTYPE_CODE[q.dtype], stream,
+            DTYPE_CODE[q.dtype], stream,
         )
-    _raise_on(err, "paged_decode_attention_int8")
+    raise_on_launch_error(err, "paged_decode_attention_int8")
     paged_decode_attention_int8.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
 paged_decode_attention_int8.launches = 0
-
-#: every kernel wrapper of this module, for counting and resetting launches
-WRAPPERS = (paged_decode_attention, paged_decode_attention_int8)
-
-
-def reset_launch_counts() -> None:
-    for fn in WRAPPERS:
-        fn.launches = 0

@@ -1,4 +1,5 @@
-"""GQA attention block: init, full-sequence (prefill) and decode apply.
+"""GQA attention block, full or sliding-window: init, full-sequence
+(prefill) and decode apply.
 
 The other block types of the JAX package (MLA, MoE, Mamba-2) are not
 ported yet; ROADMAP.md Queue 1 item 10 lists them.
@@ -11,7 +12,13 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ..configs.base import ArchConfig
-from .layers import apply_rope, chunked_attention, decode_attention, dense_init
+from .layers import (
+    apply_rope,
+    chunked_attention,
+    decode_attention,
+    decode_attention_ring,
+    dense_init,
+)
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype, device):
@@ -78,15 +85,20 @@ def attention_decode(
     cache: Tuple[torch.Tensor, torch.Tensor],
     pos: Union[int, torch.Tensor],
     *,
+    window: Optional[int] = None,
     rows: Optional[torch.Tensor] = None,
 ):
-    """Single-token decode of full attention.
+    """Single-token decode.
 
-    cache k/v [B, KV, S_max, hd] is updated IN PLACE at ``pos`` (an int or
-    a [B] tensor) — the JAX package returns a new cache, the port writes
-    into the engine's cache to save a copy of it per step.  ``rows``
-    (int64 indices) limits the write to those batch rows: the others keep
-    their cache bit for bit, as the masked vmapped step keeps them.
+    Full attention: cache k/v [B, KV, S_max, hd], written at ``pos`` (an
+    int or a [B] tensor).  Sliding window: when the cache holds exactly
+    ``window`` slots it is a RING buffer, written at ``pos % window``
+    (see ``layers.decode_attention_ring``); a shorter cache (max_seq <
+    window) is positional.  The cache is updated IN PLACE — the JAX
+    package returns a new cache, the port writes into the engine's cache
+    to save a copy of it per step.  ``rows`` (int64 indices) limits the
+    write to those batch rows: the others keep their cache bit for bit,
+    as the masked vmapped step keeps them.
     """
     b = x.shape[0]
     q, k_new, v_new = _qkv(p, cfg, x)  # seq dim == 1
@@ -98,10 +110,15 @@ def attention_decode(
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
     k_cache, v_cache = cache
     pos_b = pos_t.expand(b) if pos_t.numel() == 1 else pos_t
+    ring = window is not None and k_cache.shape[2] == window
+    write_at = pos_b % window if ring else pos_b
     idx = torch.arange(b, device=x.device) if rows is None else rows
-    k_cache[idx, :, pos_b[idx]] = k_new[idx, :, 0]
-    v_cache[idx, :, pos_b[idx]] = v_new[idx, :, 0]
-    out = decode_attention(q, k_cache, v_cache, pos_b)
+    k_cache[idx, :, write_at[idx]] = k_new[idx, :, 0]
+    v_cache[idx, :, write_at[idx]] = v_new[idx, :, 0]
+    if ring:
+        out = decode_attention_ring(q, k_cache, v_cache, pos_b, window)
+    else:
+        out = decode_attention(q, k_cache, v_cache, pos_b, window=window)
     out = out.transpose(1, 2).reshape(b, 1, -1)
     y = torch.matmul(out, p["wo"])
     return y, (k_cache, v_cache)

@@ -2,7 +2,9 @@
 
 The same arithmetic as the JAX package's layers: weights in bf16 by
 default, every reduction (norm, softmax, logits) in f32, the masking value
-is the finite ``NEG_INF``.
+is the finite ``NEG_INF``.  Prefill and full-attention decode attention
+run through ``kernels.ops`` (K3/K4 on the card, their plain versions on
+the CPU); the ring-buffer decode of sliding-window layers is plain torch.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
-NEG_INF = -1e30
+from ..kernels import ops as kernel_ops
+from ..kernels.ref import NEG_INF, repeat_kv
 
 
 # --------------------------------------------------------------------- init
@@ -73,16 +76,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 # ---------------------------------------------------------------- attention
-def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
-    """[B, kv, S, hd] → [B, kv*groups, S, hd] (GQA head replication)."""
-    if groups == 1:
-        return k
-    b, kv, s, hd = k.shape
-    return k[:, :, None].expand(b, kv, groups, s, hd).reshape(
-        b, kv * groups, s, hd
-    )
-
-
 def chunked_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -93,38 +86,24 @@ def chunked_attention(
     q_offset: int = 0,
     chunk: int = 512,
 ) -> torch.Tensor:
-    """Attention over query blocks of ``chunk`` rows, each against the full
-    (masked) K — peak memory O(chunk × S).
+    """Full-sequence attention: the flash-attention kernel (K3) on the
+    card, its plain version — query blocks of ``chunk`` rows against the
+    full masked K, peak memory O(chunk × S) — on the CPU.
 
-    q: [B, H, Sq, hd]; k, v: [B, KV, Sk, hd] (KV heads repeated to H here).
+    q: [B, H, Sq, hd]; k, v: [B, KV, Sk, hd] (grouped-query heads).
     ``q_offset`` is the absolute position of q[..., 0, :]; ``window``
     enables sliding-window masking.
     """
-    b, h, sq, hd = q.shape
-    groups = h // k.shape[1]
-    k = _repeat_kv(k, groups).float()
-    v_f = _repeat_kv(v, groups).float()
-    sk = k.shape[2]
-    scale = 1.0 / math.sqrt(hd)
-    k_pos = torch.arange(sk, device=q.device)
-    outs = []
-    for start in range(0, sq, chunk):
-        q_blk = q[:, :, start:start + chunk].float()
-        logits = torch.einsum("bhqd,bhkd->bhqk", q_blk, k) * scale
-        q_pos = q_offset + start + torch.arange(
-            q_blk.shape[2], device=q.device
-        )
-        mask = torch.ones(
-            (q_blk.shape[2], sk), dtype=torch.bool, device=q.device
-        )
-        if causal:
-            mask &= q_pos[:, None] >= k_pos[None, :]
-        if window is not None:
-            mask &= (q_pos[:, None] - k_pos[None, :]) < window
-        logits = torch.where(mask[None, None], logits, NEG_INF)
-        probs = torch.softmax(logits, dim=-1)
-        outs.append(torch.einsum("bhqk,bhkd->bhqd", probs, v_f).to(v.dtype))
-    return torch.cat(outs, dim=2)
+    return kernel_ops.flash_attention(
+        q, k, v, causal=causal, window=window or 0, q_offset=q_offset,
+        chunk=chunk,
+    )
+
+
+def _positions(cur_pos: Union[int, torch.Tensor], b: int, device):
+    """``cur_pos`` as the contiguous int32 [B] the decode kernels read."""
+    pos = torch.as_tensor(cur_pos, device=device).to(torch.int32)
+    return pos.reshape(-1).expand(b).contiguous()
 
 
 def decode_attention(
@@ -135,25 +114,49 @@ def decode_attention(
     *,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Single-token attention over a KV cache.
+    """Single-token attention over a KV cache: the decode-attention
+    kernel (K4) on the card, its plain version on the CPU.
 
     q: [B, H, 1, hd]; k_cache/v_cache: [B, KV, S, hd]; cur_pos: an int or
     a [B] tensor — the new token attends to positions [0, cur_pos] of its
-    row.  (The JAX package takes one scalar and vmaps over slots; a
-    per-row position is the same thing batched.)
+    row (after cur_pos − window with ``window``).  (The JAX package takes
+    one scalar and vmaps over slots; a per-row position is the same thing
+    batched.)
+    """
+    out = kernel_ops.decode_attention(
+        q[:, :, 0], k_cache, v_cache,
+        _positions(cur_pos, q.shape[0], q.device), window=window or 0,
+    )
+    return out[:, :, None]
+
+
+def decode_attention_ring(
+    q: torch.Tensor,
+    k_ring: torch.Tensor,
+    v_ring: torch.Tensor,
+    cur_pos: Union[int, torch.Tensor],
+    window: int,
+) -> torch.Tensor:
+    """Sliding-window decode over a RING-BUFFER cache of ``window`` slots
+    (plain torch on every device: the JAX package has no kernel for it).
+
+    Slot i holds the key of the largest absolute position p <= cur_pos
+    with p % window == i; keys carry RoPE at their absolute position, so
+    a slot is valid iff that position is >= 0.  q: [B, H, 1, hd];
+    k_ring/v_ring: [B, KV, window, hd]; cur_pos: an int or a [B] tensor.
     """
     b, h, _, hd = q.shape
-    groups = h // k_cache.shape[1]
-    k = _repeat_kv(k_cache, groups)
-    v = _repeat_kv(v_cache, groups)
-    sk = k.shape[2]
+    groups = h // k_ring.shape[1]
+    k = repeat_kv(k_ring, groups)
+    v = repeat_kv(v_ring, groups)
     scale = 1.0 / math.sqrt(hd)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    k_pos = torch.arange(sk, device=q.device)
-    cur = torch.as_tensor(cur_pos, device=q.device).reshape(-1, 1)  # [B|1, 1]
-    mask = k_pos[None, :] <= cur
-    if window is not None:
-        mask &= k_pos[None, :] > (cur - window)
+    logits = torch.einsum(
+        "bhqd,bhkd->bhqk", q.float(), k.float()
+    ) * scale
+    slots = torch.arange(window, device=q.device)
+    cur = _positions(cur_pos, b, q.device).long()[:, None]  # [B, 1]
+    abs_pos = cur - ((cur - slots[None, :]) % window)  # [B, window]
+    mask = (abs_pos >= 0) & (abs_pos <= cur)
     logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())

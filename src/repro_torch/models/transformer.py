@@ -1,4 +1,4 @@
-"""Model assembly for pure full-attention stacks: init, prefill, decode.
+"""Model assembly for attention stacks: init, prefill, decode.
 
 The parameter and cache trees keep the JAX package's layout so the two
 can be compared like with like: the repeated unit's leaves are stacked
@@ -8,8 +8,10 @@ the pattern), suffix blocks are a list, and a cache is
 ``[reps, batch, KV, max_seq, hd]`` in bf16.  Where JAX scans over the
 stacked unit, the port loops over its leading axis.
 
-Only stacks of plain ``attn`` blocks run here; any other architecture
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Stacks of ``attn`` and ``local_attn`` (sliding-window) blocks run here;
+a local block's decode cache is an O(window) ring, as in the JAX package.
+Any other architecture raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -34,13 +36,23 @@ PyTree = Any
 
 
 def _require_supported(cfg: ArchConfig) -> None:
-    """The port runs pure GQA attention stacks only (ROADMAP Queue 1
-    item 10 ports the rest of the zoo)."""
-    if not paged_decode_supported(cfg) or cfg.moe is not None:
+    """The port runs GQA attention stacks, full and sliding-window
+    (ROADMAP Queue 1 item 10 ports the rest of the zoo)."""
+    stack = list(cfg.block_pattern) + list(cfg.suffix_blocks)
+    if (
+        cfg.mla is not None
+        or cfg.ssm is not None
+        or cfg.moe is not None
+        or cfg.enc_layers
+        or cfg.frontend not in (None, "none")
+        or not stack
+        or any(bt not in ("attn", "local_attn") for bt in stack)
+    ):
         raise NotImplementedError(
-            f"{cfg.name}: only dense stacks of 'attn' blocks are ported; "
-            "MoE, MLA, Mamba, sliding-window, encoder-decoder and vision "
-            "stacks wait for ROADMAP Queue 1 item 10"
+            f"{cfg.name}: only dense stacks of 'attn' and 'local_attn' "
+            "blocks are ported; MoE, MLA, Mamba, shared-attention, "
+            "encoder-decoder and vision stacks wait for ROADMAP Queue 1 "
+            "item 10"
         )
 
 
@@ -136,35 +148,51 @@ def init_cache(
     _require_supported(cfg)
     dev = resolve_device(device)
     reps = cfg.resolved_pattern_repeats
-    shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
 
-    def kv(lead=()):
+    def kv(btype, lead=()):
+        # sliding-window layers keep an O(window) RING buffer, not O(seq)
+        seq = _cache_len(cfg, btype, max_seq)
+        shape = lead + (batch, cfg.n_kv_heads, seq, cfg.head_dim)
         return tuple(
-            torch.zeros(lead + shape, dtype=torch.bfloat16, device=dev)
+            torch.zeros(shape, dtype=torch.bfloat16, device=dev)
             for _ in range(2)
         )
 
     return {
-        "unit": {f"b{i}": kv((reps,)) for i in range(len(cfg.block_pattern))},
-        "suffix": [kv() for _ in cfg.suffix_blocks],
+        "unit": {
+            f"b{i}": kv(bt, (reps,)) for i, bt in enumerate(cfg.block_pattern)
+        },
+        "suffix": [kv(bt) for bt in cfg.suffix_blocks],
     }
 
 
+def _window(cfg: ArchConfig, btype: str) -> Optional[int]:
+    return cfg.sliding_window if btype == "local_attn" else None
+
+
+def _cache_len(cfg: ArchConfig, btype: str, max_seq: int) -> int:
+    """Cache slots of one block: ``max_seq``, or the ring's
+    ``min(max_seq, window)`` for a sliding-window block."""
+    window = _window(cfg, btype)
+    return max_seq if window is None else min(max_seq, window)
+
+
 def _layers(cfg: ArchConfig, params, caches=None) -> Iterator[Tuple]:
-    """(block params, block cache) in execution order: the unit's blocks
-    once per repeat (their leaves indexed at the repeat), then the suffix.
-    Cache leaves are views, so writes land in ``caches``."""
+    """(block type, block params, block cache) in execution order: the
+    unit's blocks once per repeat (their leaves indexed at the repeat),
+    then the suffix.  Cache leaves are views, so writes land in
+    ``caches``."""
     for r in range(cfg.resolved_pattern_repeats):
-        for i in range(len(cfg.block_pattern)):
+        for i, btype in enumerate(cfg.block_pattern):
             key = f"b{i}"
             p = _index(params["layers"][key], r)
             c = None
             if caches is not None:
                 k, v = caches["unit"][key]
                 c = (k[r], v[r])
-            yield p, c
-    for j, p in enumerate(params["suffix"]):
-        yield p, (caches["suffix"][j] if caches is not None else None)
+            yield btype, p, c
+    for j, (btype, p) in enumerate(zip(cfg.suffix_blocks, params["suffix"])):
+        yield btype, p, (caches["suffix"][j] if caches is not None else None)
 
 
 def _index(tree: PyTree, r: int) -> PyTree:
@@ -207,20 +235,31 @@ def prefill(
     max_seq = max_seq or s
     x = _embed(params, tokens)
     kvs = []
-    for p, _ in _layers(cfg, params):
+    for btype, p, _ in _layers(cfg, params):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        window = _window(cfg, btype)
         a, (k, v) = blocks.attention_forward(
-            p["attn"], cfg, h, return_cache=True
+            p["attn"], cfg, h, window=window, return_cache=True
         )
         x = x + a
         x = x + _ffn(p, cfg, x)
-        pad = max_seq - s
-        if pad > 0:
-            k = torch.nn.functional.pad(k, (0, 0, 0, pad))
-            v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        seq = _cache_len(cfg, btype, max_seq)
+        if window is not None and s > seq:
+            k, v = _to_ring(k, window), _to_ring(v, window)
+        elif seq > s:
+            k = torch.nn.functional.pad(k, (0, 0, 0, seq - s))
+            v = torch.nn.functional.pad(v, (0, 0, 0, seq - s))
         kvs.append((k, v))
     logits = _unembed(cfg, params, x[:, -1:])
     return logits, _caches_from_layers(cfg, kvs)
+
+
+def _to_ring(x: torch.Tensor, window: int) -> torch.Tensor:
+    """Fold a prefill K/V [B, KV, S, hd] with S > window into the ring
+    layout: slot j holds the last position p < S with p % window == j."""
+    s = x.shape[2]
+    j = torch.arange(window, device=x.device)
+    return x[:, :, (s - 1) - ((s - 1 - j) % window)]
 
 
 def _caches_from_layers(cfg: ArchConfig, kvs: List[Tuple]) -> PyTree:
@@ -252,9 +291,12 @@ def decode_step(
     """
     _require_supported(cfg)
     x = _embed(params, tokens)
-    for p, cache in _layers(cfg, params, caches):
+    for btype, p, cache in _layers(cfg, params, caches):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        a, _ = blocks.attention_decode(p["attn"], cfg, h, cache, pos, rows=rows)
+        a, _ = blocks.attention_decode(
+            p["attn"], cfg, h, cache, pos, window=_window(cfg, btype),
+            rows=rows,
+        )
         x = x + a
         x = x + _ffn(p, cfg, x)
     return _unembed(cfg, params, x), caches
@@ -311,6 +353,11 @@ def decode_step_paged(
     Returns (logits [B, 1, V], caches).
     """
     _require_supported(cfg)
+    if not paged_decode_supported(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the paged path serves stacks of full-attention "
+            "blocks only (paged_decode_supported)"
+        )
     x = _embed(params, tokens)
     B = tokens.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -333,7 +380,7 @@ def decode_step_paged(
     s_slot = page_src_slot.long()
     s_idx = page_src_idx.long()
 
-    for p, (kc, vc) in _layers(cfg, params, caches):
+    for _, p, (kc, vc) in _layers(cfg, params, caches):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         ap = p["attn"]
         q, k_new, v_new = blocks._qkv(ap, cfg, h)  # [B, {H,KV}, 1, hd]

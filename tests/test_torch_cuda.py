@@ -1,5 +1,11 @@
 """The port on the card: CUDA kernels against their plain versions, and
-the engine's paged path through them.
+the engine's paths through them.
+
+Tolerances: in f32 the kernels and the plain versions differ only in the
+order of f32 sums (1e-5).  In bf16 both compute in f32 from the same
+bf16 inputs and round the output once, so they differ by at most one
+bf16 ulp (8 significant bits) at the largest |output| — the limit
+``chip_smoke.py`` states too.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips with a
 reason elsewhere.  The file imports no JAX, so it runs on a machine that
@@ -11,8 +17,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import math  # noqa: E402
+
 from repro_torch.configs import ARCHS  # noqa: E402
-from repro_torch.kernels import paged_decode, ref  # noqa: E402
+from repro_torch.kernels import ops, paged_decode, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.models import init_model  # noqa: E402
 from repro_torch.models.transformer import _quantize_pool_int8  # noqa: E402
 from repro_torch.sched import MursConfig, MursPolicy  # noqa: E402
@@ -21,7 +31,14 @@ from repro_torch.serve import EngineConfig, Request, ServingEngine  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 F32_ATOL = 1e-5  # f32 against f32: summation order only
-BF16_ATOL = 2e-2  # one bf16 rounding of outputs of order 1
+
+
+def _atol(plain):
+    """F32_ATOL in f32; in bf16 one bf16 ulp at the largest |plain|."""
+    if plain.dtype == torch.float32:
+        return F32_ATOL
+    return 2.0 ** (math.floor(math.log2(plain.float().abs().max().item()))
+                   - 7)
 
 
 @pytest.fixture
@@ -56,20 +73,19 @@ SHAPES = [  # (bh, width, page, hd): smoke, odd widths, the serving path
 @pytest.mark.parametrize("bh,width,page,hd", SHAPES)
 def test_kernel_matches_plain(dev, dtype, bh, width, page, hd):
     dt = getattr(torch, dtype)
-    atol = F32_ATOL if dt == torch.float32 else BF16_ATOL
     args = _case(dev, dt, seed=hd + bh, bh=bh, width=width, page=page, hd=hd)
     out = paged_decode.paged_decode_attention(*args)
     plain = ref.paged_decode_attention_ref(*args)
     torch.cuda.synchronize()
     assert out.dtype == dt and torch.isfinite(out.float()).all()
-    torch.testing.assert_close(out.float(), plain.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(out.float(), plain.float(), atol=_atol(plain),
+                               rtol=0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bh,width,page,hd", SHAPES)
 def test_int8_kernel_matches_plain(dev, dtype, bh, width, page, hd):
     dt = getattr(torch, dtype)
-    atol = F32_ATOL if dt == torch.float32 else BF16_ATOL
     q, k, v, table, lens = _case(dev, dt, seed=hd + bh + 1, bh=bh,
                                  width=width, page=page, hd=hd)
     kc, ks = _quantize_pool_int8(k)
@@ -78,7 +94,8 @@ def test_int8_kernel_matches_plain(dev, dtype, bh, width, page, hd):
     out = paged_decode.paged_decode_attention_int8(*args)
     plain = ref.paged_decode_attention_int8_ref(*args)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out.float(), plain.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(out.float(), plain.float(), atol=_atol(plain),
+                               rtol=0)
 
 
 def test_wrapper_rejects_what_the_kernel_cannot_take(dev):
@@ -93,6 +110,108 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(dev):
                                             table, lens)
     with pytest.raises(ValueError, match="contiguous"):
         paged_decode.paged_decode_attention(q, k, v, table.t(), lens)
+
+
+def _rand(gen, dev, dtype, *shape):
+    return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+
+# (B, H, KV, Sq, Sk, hd, causal, window, q_offset): chip_smoke.py's K3
+# shapes — internlm2's first chunk and full prompt, a gemma3 local layer,
+# the smoke shape (hd 16, ragged, two rows that keep no key) — and odd
+# widths
+FLASH_SHAPES = [
+    (1, 16, 8, 64, 64, 128, True, 0, 0),
+    (1, 16, 8, 1024, 1024, 128, True, 0, 0),
+    (1, 4, 1, 1024, 1024, 256, True, 512, 0),
+    (1, 4, 2, 37, 37, 16, True, 4, 5),
+    (2, 6, 3, 65, 100, 24, False, 0, 0),
+    (1, 2, 1, 33, 97, 256, True, 16, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal,window,q_offset",
+                         FLASH_SHAPES)
+def test_flash_kernel_matches_plain(dev, dtype, b, h, kv, sq, sk, hd, causal,
+                                    window, q_offset):
+    """K3 on the model's layout: q and k contiguous, v a transposed view
+    of a [B, S, KV, hd] buffer, as ``blocks._qkv`` makes it."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(sq + hd)
+    q = _rand(gen, dev, dt, b, h, sq, hd)
+    k = _rand(gen, dev, dt, b, kv, sk, hd)
+    v = _rand(gen, dev, dt, b, sk, kv, hd).transpose(1, 2)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = flash_attention(q, k, v, **kw)
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and out.shape == (b, h, sq, hd)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), plain.float(), atol=_atol(plain),
+                               rtol=0)
+
+
+# (B, H, KV, S, hd, window): chip_smoke.py's K4 shapes — the
+# chunked-prefill continuation, the dense batch, a gemma3 global layer,
+# the dense batch with a window — and odd widths
+DECODE_SHAPES = [
+    (1, 16, 8, 1024, 128, 0),
+    (8, 16, 8, 1024, 128, 0),
+    (8, 4, 1, 1024, 256, 0),
+    (8, 16, 8, 1024, 128, 512),
+    (3, 6, 2, 50, 24, 7),
+    (2, 3, 3, 17, 16, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,s,hd,window", DECODE_SHAPES)
+def test_decode_kernel_matches_plain(dev, dtype, b, h, kv, s, hd, window):
+    """K4 on a layer view of a slot cache [reps, n_slots, KV, S, hd],
+    one position per row (row 0 at position 0, one at the last slot)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(s + hd + b)
+    q = _rand(gen, dev, dt, b, h, hd)
+    cache = _rand(gen, dev, dt, 2, 2, b, kv, s, hd)
+    k, v = cache[0, 1], cache[1, 0]
+    pos = torch.randint(0, s, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos[0] = 0
+    pos[-1] = s - 1
+    out = decode_attention(q, k, v, pos, window=window)
+    plain = ref.decode_attention_ref(q, k, v, pos, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), plain.float(), atol=_atol(plain),
+                               rtol=0)
+
+
+def test_attention_wrappers_reject_what_the_kernels_cannot_take(dev):
+    q = torch.randn(1, 2, 8, 16, device=dev)
+    k = torch.randn(1, 1, 8, 16, device=dev)
+    with pytest.raises(ValueError, match="one shape"):
+        flash_attention(q, k, torch.randn(1, 1, 8, 24, device=dev))
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q[..., 1:9], k[..., 1:9], k[..., 1:9])
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention(q[:, :, 0], k, k, torch.zeros(1, device=dev,
+                                                       dtype=torch.int64))
+
+
+def test_plain_switch_launches_nothing(dev):
+    ops.reset_launch_counts()
+    q = torch.randn(1, 2, 8, 16, device=dev)
+    k = torch.randn(1, 1, 8, 16, device=dev)
+    with ops.plain_on_card():
+        ops.flash_attention(q, k, k)
+        ops.decode_attention(q[:, :, 0], k, k,
+                             torch.zeros(1, device=dev, dtype=torch.int32))
+    assert all(fn.launches == 0 for fn in ops.WRAPPERS)
+    ops.flash_attention(q, k, k)
+    assert flash_attention.launches == 1
 
 
 def _engine(dev, **kw):
@@ -115,10 +234,30 @@ def _engine(dev, **kw):
 
 @pytest.mark.parametrize("int8", [False, True])
 def test_engine_decodes_through_the_kernel(dev, int8):
-    paged_decode.reset_launch_counts()
+    ops.reset_launch_counts()
     cfg, eng = _engine(dev, paged_decode_int8=int8)
     assert len(eng.completed) == 5 and not eng.failed
     assert eng.paged_decode_ticks > 0
     fn = (paged_decode.paged_decode_attention_int8 if int8
           else paged_decode.paged_decode_attention)
     assert fn.launches == cfg.n_layers * eng.paged_decode_ticks
+
+
+def test_gemma3_engine_runs_prefill_and_decode_kernels(dev):
+    """Sliding-window gemma3 (smoke) serves through K3 and K4 on the card:
+    every request completes, and decode never takes the paged path."""
+    ops.reset_launch_counts()
+    cfg = ARCHS["gemma3-1b"].smoke()
+    eng = ServingEngine(
+        cfg, init_model(cfg, 0, device=dev),
+        EngineConfig(n_slots=3, max_seq=64, hbm_capacity_bytes=1e9,
+                     prefill_chunk_tokens=32,
+                     policy=MursPolicy(MursConfig.for_serving(period=1.0)),
+                     device=str(dev)),
+    )
+    for i in range(3):
+        eng.submit(Request(f"A{i}", "A", list(range(10, 50 + i)), 12))
+    eng.run(max_ticks=600)
+    assert len(eng.completed) == 3 and not eng.failed
+    assert eng.paged_decode_ticks == 0
+    assert flash_attention.launches > 0 and decode_attention.launches > 0

@@ -33,6 +33,9 @@ def test_every_module_is_listed():
     names = _port_modules()
     for expected in (
         "repro_torch.kernels.paged_decode",
+        "repro_torch.kernels.flash_attention",
+        "repro_torch.kernels.decode_attention",
+        "repro_torch.configs.gemma3_1b",
         "repro_torch.models.transformer",
         "repro_torch.serve.engine",
         "repro_torch.launch.serve",

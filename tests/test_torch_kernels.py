@@ -121,7 +121,7 @@ def test_bf16_output_keeps_q_dtype():
 
 def test_cpu_tensors_take_the_plain_version():
     """On CPU tensors ``ops`` runs the plain version: no kernel launch."""
-    paged_decode.reset_launch_counts()
+    ops.reset_launch_counts()
     q, k, v, table, lens = _case(9, 2, 2, 16, 32)
     ops.paged_decode_attention(*_t(q, k, v, table, lens))
     ops.paged_decode_attention_int8(*_t(*_quantized_case(9, 2, 2)))

@@ -39,7 +39,7 @@ from repro_torch import sched as tsched  # noqa: E402
 from repro_torch import serve as tserve  # noqa: E402
 from repro_torch.configs import ARCHS as TARCHS  # noqa: E402
 from repro_torch.dist.compression import quantize as tquantize  # noqa: E402
-from repro_torch.kernels import paged_decode  # noqa: E402
+from repro_torch.kernels import ops, paged_decode  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
 #: the logit tolerance stated (and measured) in test_torch_model.py
@@ -262,7 +262,7 @@ def _port_engine(params, **kw):
 
 @pytest.fixture(scope="module")
 def port_engine(params):
-    paged_decode.reset_launch_counts()
+    ops.reset_launch_counts()
     return _port_engine(params)
 
 
