@@ -1,29 +1,37 @@
 #!/usr/bin/env python3
 """Where a serving tick's time goes on one NVIDIA GPU (an H100).
 
-Run from the root of a checkout, with no arguments::
+Run from the root of a checkout::
 
-    python3 chip_profile.py
+    python3 chip_profile.py                                # internlm2-1.8b
+    python3 chip_profile.py --arch granite-moe-3b-a800m    # the MoE model
 
-Serves ``chip_smoke.py``'s B and C tenants on full-width internlm2-1.8b
-(random bf16 weights from a seed) through the port's MURS engine and the
-f32 paged-decode kernel, under ``torch.profiler``.  Prints one JSON line
-with the device's busy share of the window, the kernels that take the
-most device time, and the PyTorch operators (with their input shapes)
-whose own device time is largest — which tells a dtype cast of the
-unembedding weight from one of an activation — then the ``nvidia-smi``
-name and power limit.  The profiler's own host cost lengthens the window,
+Serves ``chip_smoke.py``'s B and C tenants on full-width internlm2-1.8b,
+or its whole granite-moe schedule (random bf16 weights from a seed),
+through the port's MURS engine and the paged-decode kernel, under
+``torch.profiler``.  Prints one JSON line with the device's busy share of
+the window, the kernels that take the most device time, the PyTorch
+operators (with their input shapes) whose own device time is largest —
+which tells a dtype cast of the unembedding weight from one of an
+activation — and those whose own host time is largest, then the
+``nvidia-smi`` name and power limit.  The profiler's own host cost lengthens the window,
 so the busy share is a lower bound; it is null where the profiler saw no
 device time.
 """
 
+import argparse
 import sys
 import time
 
 import chip_smoke as smoke
 
+PROFILED = ("internlm2-1.8b", "granite-moe-3b-a800m")
+
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=PROFILED[0], choices=PROFILED)
+    arch = ap.parse_args().arch
     sys.path.insert(0, str(smoke.SRC))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -37,11 +45,15 @@ def main() -> int:
     from repro_torch.configs import ARCHS
     from repro_torch.models import init_model
 
-    cfg = ARCHS["internlm2-1.8b"]
+    cfg = ARCHS[arch]
     params = init_model(cfg, smoke.SEED, device=smoke.DEV)
-    # a first run outside the window builds the kernel and warms the caches
-    smoke.drive(*smoke.serve_engine(cfg, params, ("B",), False))
-    eng, sched = smoke.serve_engine(cfg, params, ("B", "C"), False)
+    # a first run outside the window builds the kernels and warms the caches
+    if cfg.moe is not None:
+        smoke.drive(*smoke.granite_engine(cfg, params, smoke.DEV))
+        eng, sched = smoke.granite_engine(cfg, params, smoke.DEV)
+    else:
+        smoke.drive(*smoke.serve_engine(cfg, params, ("B",), False))
+        eng, sched = smoke.serve_engine(cfg, params, ("B", "C"), False)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -60,7 +72,9 @@ def main() -> int:
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
            if e.self_device_time_total > 0]
     top_ops = sorted(ops, key=lambda e: -e.self_device_time_total)[:10]
-    smoke.emit({"phase": "profile", "ticks": len(ticks),
+    host_ops = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)[:10]
+    smoke.emit({"phase": "profile", "arch": cfg.name, "ticks": len(ticks),
                 "wall_ms": wall_us / 1e3,
                 "device_busy_ms": busy / 1e3 if busy else None,
                 "device_busy_share": busy / wall_us if busy else None,
@@ -68,7 +82,10 @@ def main() -> int:
                 "top_kernels_ms": [[n[:90], us / 1e3] for n, us in top],
                 "top_ops_self_device_ms": [
                     [e.key, str(e.input_shapes)[:120], e.count,
-                     e.self_device_time_total / 1e3] for e in top_ops]})
+                     e.self_device_time_total / 1e3] for e in top_ops],
+                "top_ops_self_host_ms": [
+                    [e.key, e.count, e.self_cpu_time_total / 1e3]
+                    for e in host_ops]})
     print(smoke.nvidia_smi(), flush=True)
     return 0
 

@@ -9,7 +9,7 @@ Phases, each printing one JSON line (or one per kernel or run):
 
 1. ``device`` — the card as ``nvidia-smi`` names it, its power limit, and
    the torch/CUDA versions;
-2. ``build`` — nvcc builds the three CUDA sources of
+2. ``build`` — nvcc builds the four CUDA sources of
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once);
 3. ``kernel`` — each kernel against its plain PyTorch version on the card,
    in the working dtype, on inputs drawn from a seeded generator: K1/K2
@@ -18,9 +18,12 @@ Phases, each printing one JSON line (or one per kernel or run):
    attention) at internlm2's first prompt chunk and full prompt, a gemma3
    local layer and a smoke shape; K4 (decode attention) at the
    chunked-prefill continuation, a dense batch, a gemma3 global layer and
-   a windowed batch.  Kernel, plain-version and
-   ``scaled_dot_product_attention`` times (cold L2), and the bound from
-   the bytes and operations each call needs;
+   a windowed batch; K5 (grouped matmul) at the capacities the MoE code
+   gives granite-moe's serving traffic (paged and dense decode, a prefill
+   of each prompt length served, a 400- and a 1024-token prefill) and a
+   ragged smoke shape.  Kernel, plain-version and library
+   (``scaled_dot_product_attention``, ``torch.bmm``) times (cold L2),
+   and the bound from the bytes and operations each call needs;
 4. ``serve`` — internlm2-1.8b at full width (24 layers, d 2048, hd 128,
    vocab 92,544; random bf16 weights from a seed) served by the port's
    MURS engine over a paged KV pool sized to force suspensions, first
@@ -38,7 +41,20 @@ Phases, each printing one JSON line (or one per kernel or run):
 6. ``reference`` — internlm2: one full-width decode step through K1
    against the dense step through K4 and the dense step of the plain
    versions on the same caches; gemma3: a 768-token prefill and 8 decode
-   steps through K3/K4 against the same inside ``ops.plain_on_card``.
+   steps through K3/K4 against the same inside ``ops.plain_on_card``;
+7. ``serve-granite-moe`` — granite-moe-3b-a800m at full width (32 layers,
+   d 1536, 24 heads, 8 KV heads, hd 64, 40 experts top-8, d_ff_expert
+   512, vocab 49,155, tied embeddings) on the paged path under MURS:
+   K5 runs three times per layer of every model call (``prefill``,
+   ``decode_step``, ``decode_step_paged``), K1/K3/K4 once per layer of
+   theirs; K5 stays at 0 in the internlm2 and gemma3 runs.  Every K5
+   shape this run and the next phase launch is held to the plain version
+   (the kernel phase's, or checked after the run);
+8. ``reference`` — granite-moe, in f32 and in bf16: a prefill and a
+   paged decode step from equal caches through the kernels and inside
+   ``ops.plain_on_card``: logits, argmax and the (layer, token) top-k
+   expert sets that differ between the two; in bf16 also the plain run
+   with every dispatch pinned to the kernel run's gates.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1.  Without a
@@ -67,8 +83,25 @@ POOL_PAGES = 48  # pool pages of the simulated HBM budget
 #: gemma3's simulated HBM budget, in requests' worth of ring state
 #: (11.5 MB each) — forces suspensions at 8 slots
 GEMMA_POOL_STATES = 5.0
+#: granite-moe's simulated HBM budget, in 16-token pages of its 65,536
+#: B/token KV: forces a suspension (CPU rehearsal at the same byte model)
+GRANITE_POOL_PAGES = 26
+#: serve-granite-moe's prompt lengths: A, B and C (a 64-token shared
+#: prefix and one token of its own)
+GRANITE_PROMPTS = {"A": 160, "B": 32, "C": 65}
 F32_ATOL = 1e-5  # kernel vs plain in f32: summation order only
 LOGIT_ATOL = 0.1  # full-width logits through two attention paths
+#: full-width f32 logits, kernels against plain versions: summation order
+#: through 32 layers, and no routing choice may differ
+F32_LOGIT_ATOL = 1e-3
+#: granite-moe in bf16 without pinned routing, kernels against plain
+#: versions: at most this share of (layer, token) top-k expert sets may
+#: differ, and the logits at most UNPINNED_LOGIT_ATOL.  Set from the first
+#: readings (9.5 % of prefill and 4.2 % of decode pairs, logits within
+#: 0.080) with about twice to three times their room: a fault that
+#: changes the served path's routing or expert outputs goes past them.
+UNPINNED_FLIP_SHARE = 0.2
+UNPINNED_LOGIT_ATOL = 0.25
 
 
 class CheckFailed(Exception):
@@ -419,6 +452,136 @@ def attention_kernel_phase(torch, F, ref, flush):
             for kernel, case in LINE_CASE.items()}
 
 
+def gmm_cases(cfg):
+    """(name, E, C, D, F) of K5's kernel phase at granite-moe's widths,
+    with C from the MoE code's own capacity functions: decode gate/up and
+    down at the paged path's batch-wide group (up to N_SLOTS rows) and
+    gate/up at the dense path's N_SLOTS per-row groups folded together; a
+    prefill of each prompt length serve-granite-moe sends; a 400- and a
+    1024-token prefill (the 128- and 256-row blocks); a ragged shape."""
+    from repro_torch.models.blocks import _capacity, _decode_capacity
+
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    c_paged = _decode_capacity(cfg, N_SLOTS)
+    cases = [("decode_gate_up", e, c_paged, d, f),
+             ("decode_down", e, c_paged, f, d),
+             ("dense_decode_gate_up", e, N_SLOTS * _decode_capacity(cfg, 1),
+              d, f)]
+    for s in sorted(set(GRANITE_PROMPTS.values())) + [400, 1024]:
+        cases.append((f"prefill_s{s}", e, _capacity(cfg, s), d, f))
+    return cases + [("smoke", 3, 5, 72, 40)]
+
+
+#: the K5 case in the kernels line: the shape of two thirds of the serve
+#: run's launches
+GMM_LINE_CASE = "decode_gate_up"
+
+
+def gmm_check(torch, ref, x, w, what):
+    """K5 against its plain version on (x, w): finite, and within one bf16
+    ulp of max |plain| (F32_ATOL in f32); returns (error, tolerance)."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+
+    out = grouped_matmul(x, w)
+    gold = ref.grouped_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    err = (out.float() - gold.float()).abs().max().item()
+    atol = F32_ATOL if x.dtype == torch.float32 else bf16_ulp(gold)
+    check(torch.isfinite(out.float()).all().item(),
+          f"grouped_matmul {what}: non-finite output")
+    check(err <= atol, f"grouped_matmul {what}: max err {err} > {atol}")
+    return err, atol
+
+
+def gmm_inputs(torch, gen, dtype, e, c, d, f, x_stride=None):
+    x = torch.randn(e, c, d, generator=gen, device=DEV).to(dtype)
+    if x_stride is not None:
+        x = torch.empty_strided((e, c, d), x_stride, dtype=dtype,
+                                device=DEV).copy_(x)
+    w = (torch.randn(e, d, f, generator=gen, device=DEV)
+         / math.sqrt(d)).to(dtype)
+    return x, w
+
+
+def gmm_kernel_phase(torch, ref, flush, cases):
+    """K5 against its plain version at ``cases`` in bf16 (f32 too at the
+    smoke and decode gate/up shapes); returns its kernels-line entry and
+    the set of (E, C, D, F, dtype) it checked."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    results, max_err, checked = {}, 0.0, set()
+    for name, e, c, d, f in cases:
+        dtypes = ((torch.float32, torch.bfloat16)
+                  if name in ("smoke", GMM_LINE_CASE) else (torch.bfloat16,))
+        for dtype in dtypes:
+            x, w = gmm_inputs(torch, gen, dtype, e, c, d, f)
+            err, atol = gmm_check(torch, ref, x, w, f"{name} {dtype}")
+            checked.add((e, c, d, f, dtype))
+            elem = x.element_size()
+            n_bytes = (e * c * d + e * d * f + e * c * f) * elem
+            flops = 2 * e * c * d * f
+            bound_ms, bound_by = bound(n_bytes, flops, dtype, torch)
+            r = {
+                "phase": "kernel", "name": "grouped_matmul", "case": name,
+                "dtype": str(dtype).replace("torch.", ""),
+                "shape": {"E": e, "C": c, "D": d, "F": f},
+                "max_abs_err": err, "tolerance": atol,
+                "ms": time_ms(torch, lambda: grouped_matmul(x, w), flush),
+                "plain_ms": time_ms(
+                    torch, lambda: ref.grouped_matmul_ref(x, w), flush),
+                "library_ms": time_ms(torch, lambda: torch.bmm(x, w), flush),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": n_bytes, "flops": flops,
+            }
+            emit(r)
+            if dtype == torch.bfloat16:
+                max_err = max(max_err, err)
+                results[name] = r
+    return {"grouped_matmul": {**results[GMM_LINE_CASE],
+                               "max_abs_err": max_err}}, checked
+
+
+@contextlib.contextmanager
+def gmm_shapes(ops):
+    """Record the (E, C, D, F, dtype, x strides) of every ``ops``
+    grouped matmul made inside the block (the model calls it by this
+    name); yields the set."""
+    gmm = ops.grouped_matmul
+    seen = set()
+
+    def recording(x, w):
+        seen.add((*x.shape, w.shape[2], x.dtype, x.stride()))
+        return gmm(x, w)
+
+    ops.grouped_matmul = recording
+    try:
+        yield seen
+    finally:
+        ops.grouped_matmul = gmm
+
+
+def check_launched_gmm_shapes(torch, ref, shapes, checked, what):
+    """Hold K5 to its plain version at every recorded shape (with its x
+    strides) that the kernel phase did not check; emit what was done."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    new = []
+    for e, c, d, f, dtype, stride in sorted(shapes, key=str):
+        contiguous = stride == (c * d, d, 1)
+        if contiguous and (e, c, d, f, dtype) in checked:
+            continue
+        x, w = gmm_inputs(torch, gen, dtype, e, c, d, f, x_stride=stride)
+        err, atol = gmm_check(torch, ref, x, w, f"{what} {(e, c, d, f)} "
+                              f"{dtype} x stride {stride}")
+        new.append({"shape": [e, c, d, f],
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "x_stride": list(stride), "max_abs_err": err,
+                    "tolerance": atol})
+    emit({"phase": "kernel-at-launched-shapes", "name": "grouped_matmul",
+          "of": what, "shapes_launched": len(shapes),
+          "in_kernel_phase": len(shapes) - len(new), "checked_here": new})
+
+
 def count_calls(module, names):
     """Wrap ``module``'s functions ``names`` so that each call adds one to
     its entry of the returned dict (the engine calls the model through
@@ -574,6 +737,16 @@ def run_and_count(torch, cfg, eng, sched, ops, calls, extra, phase="serve"):
           f"decode_attention: {launches['decode_attention']} launches != "
           f"{n_full} full-attention layers x {calls['decode_step']} "
           "decode_step calls")
+    # K5: three expert products per MoE layer of every model call; none
+    # on a dense stack
+    n_moe = cfg.n_layers if cfg.moe is not None else 0
+    n_calls = sum(calls.values())
+    check(launches["grouped_matmul"] == 3 * n_moe * n_calls,
+          f"grouped_matmul: {launches['grouped_matmul']} launches != 3 x "
+          f"{n_moe} MoE layers x {n_calls} model calls")
+    check(calls["decode_step_paged"] == eng.paged_decode_ticks,
+          f"{phase}: {calls['decode_step_paged']} decode_step_paged calls "
+          f"!= {eng.paged_decode_ticks} paged ticks")
     return out, eng
 
 
@@ -767,6 +940,258 @@ def reference_gemma3(torch, cfg, params, ops, prompt=768, steps=8):
 
 
 
+# ------------------------------------------------------------ granite-moe
+def granite_traffic(Request, vocab, rng):
+    """A — 3 × (160-token prompt, 48 new) at ticks 1, 2 and 3; B — 4 ×
+    (32, 16) at tick 0; C — 3 × (64-token shared prefix + 1 token, 16
+    new), C0 at tick 0, C1 and C2 at tick 3."""
+    sched = {}
+
+    def at(tick, req):
+        sched.setdefault(tick, []).append(req)
+
+    for i in range(3):
+        at(1 + i, Request(f"A{i}", "A", rng.integers(
+            0, vocab, GRANITE_PROMPTS["A"]).tolist(), 48))
+    for i in range(4):
+        at(0, Request(f"B{i}", "B", rng.integers(
+            0, vocab, GRANITE_PROMPTS["B"]).tolist(), 16))
+    shared = rng.integers(0, vocab, GRANITE_PROMPTS["C"] - 1).tolist()
+    for i in range(3):
+        at(0 if i == 0 else 3,
+           Request(f"C{i}", "C", shared + [int(rng.integers(0, vocab))], 16))
+    return sched
+
+
+def granite_engine(cfg, params, device):
+    """granite-moe's engine and arrival schedule: the paged path, MURS, 8
+    slots, max_seq 1024, page 16, prefix cache on, a 1024-token prefill
+    budget (every prompt in one ``prefill`` call) and an HBM budget of
+    GRANITE_POOL_PAGES pages."""
+    from repro_torch.sched import MursConfig, MursPolicy
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+
+    eng = ServingEngine(
+        cfg, params,
+        EngineConfig(
+            n_slots=N_SLOTS, max_seq=MAX_SEQ,
+            hbm_capacity_bytes=cfg.kv_bytes_per_token() * PAGE
+            * GRANITE_POOL_PAGES,
+            policy=MursPolicy(MursConfig.for_serving(period=1.0)),
+            prefix_cache=True, prefill_chunk_tokens=1024, device=device,
+        ),
+    )
+    return eng, granite_traffic(Request, cfg.vocab,
+                                np.random.default_rng(SEED))
+
+
+def serve_granite(torch, cfg, params, ops, calls, ref, checked):
+    eng, sched = granite_engine(cfg, params, DEV)
+    with gmm_shapes(ops) as shapes:
+        out, eng = run_and_count(torch, cfg, eng, sched, ops, calls, {},
+                                 phase="serve-granite-moe")
+    check_launched_gmm_shapes(torch, ref, shapes, checked,
+                              "serve-granite-moe")
+    check(out["suspensions"] >= 1, "serve-granite-moe: no suspension")
+    check(out["prefix_hits"] >= 1, "serve-granite-moe: no prefix hit")
+    check(eng.paged_decode_ticks > 0, "serve-granite-moe: no paged tick")
+    check(out["launches"]["paged_decode_attention"]
+          == cfg.n_layers * eng.paged_decode_ticks,
+          f"serve-granite-moe: paged_decode_attention "
+          f"{out['launches']['paged_decode_attention']} launches != "
+          f"{cfg.n_layers} layers x {eng.paged_decode_ticks} paged ticks")
+    return out
+
+
+@contextlib.contextmanager
+def routing(blocks, pinned=None):
+    """Record every MoE dispatch, in call order (one call per MoE layer):
+    yields a list of (gates [G, N, E], sorted top-k expert ids [G, N, k]).
+    With ``pinned`` (such a list from another run) each dispatch takes the
+    pinned run's gates instead of its own: the same experts and weights,
+    whatever the router computed here."""
+    dispatch = blocks.moe_dispatch_row
+    seen = []
+
+    def recording(x, gates, top_k, capacity):
+        if pinned is not None:
+            gates = pinned[len(seen)][0]
+        idx = gates.sort(dim=-1, descending=True, stable=True)[1]
+        seen.append((gates, idx[..., :top_k].sort(dim=-1)[0]))
+        return dispatch(x, gates, top_k, capacity)
+
+    blocks.moe_dispatch_row = recording
+    try:
+        yield seen
+    finally:
+        blocks.moe_dispatch_row = dispatch
+
+
+def routing_flips(a, b, rows=None):
+    """(layer, group, token) triples whose top-k expert sets differ
+    between two recordings of ``routing``; ``rows`` keeps only the first
+    tokens of a one-group decode dispatch (the real rows)."""
+    flips = []
+    for layer, ((_, x), (_, y)) in enumerate(zip(a, b)):
+        if rows is not None:
+            x, y = x[:, :rows], y[:, :rows]
+        differ = (x != y).any(dim=-1)
+        flips += [(layer, *ix) for ix in differ.nonzero().tolist()]
+    return flips
+
+
+def reference_granite(torch, cfg, params, ops):
+    """granite-moe at full width, in f32 (the bf16 parameters cast up)
+    and in bf16: a 2 × 48-token prefill, and one paged decode step of 3
+    requests (40, 25, 17 tokens) plus a pad row from equal caches, through
+    the kernels and inside ``ops.plain_on_card``.
+
+    f32: logits within F32_LOGIT_ATOL, argmax equal in every row and no
+    top-k choice differs.  bf16: the kernels and the plain versions round
+    their f32 sums to bf16 in other orders, and a one-ulp change of a
+    hidden state can swap a token's 8th and 9th expert; a swap changes
+    that token's function from then on.  Every (layer, token) whose
+    expert set differs is counted and reported; their share is held to
+    UNPINNED_FLIP_SHARE and the logits to UNPINNED_LOGIT_ATOL.  The
+    logits are held to LOGIT_ATOL in a third run: the plain versions with
+    each dispatch pinned to the kernel run's gates, which holds the
+    kernels' arithmetic to the plain versions' without the routing
+    discontinuity.  There the argmax agrees, or the reference's top-2
+    margin is below two bf16 ulps of the row's largest |logit| (a
+    near-tie: random weights give near-flat logits over 49,155
+    tokens)."""
+    from repro_torch.models import blocks, decode_step_paged, prefill
+
+    def k5_launches():
+        return {fn.__name__: fn.launches
+                for fn in ops.WRAPPERS}["grouped_matmul"]
+
+    rng = np.random.default_rng(SEED + 5)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 48)), device=DEV)
+    lens, max_seq = [40, 25, 17], 64
+    seqs = [torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)), device=DEV)
+            for n in lens]
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 1)),
+                          dtype=torch.int32, device=DEV)
+    tok[3] = 0  # the pad row carries token 0, as the engine's do
+    tables, src_slot, src_idx, pid = [], [], [], 0
+    for s, n in enumerate(lens):
+        row = list(range(pid, pid + n // PAGE + 1))
+        src_slot += [s] * len(row)
+        src_idx += list(range(len(row)))
+        pid += len(row)
+        tables.append(row)
+    n_pool = 1 << (pid - 1).bit_length()
+    w = 1 << (max(map(len, tables)) - 1).bit_length()
+    tab = np.zeros((4, w), np.int32)
+    for r, row in enumerate(tables):
+        tab[r, :len(row)] = row
+    cuda = dict(dtype=torch.int32, device=DEV)
+    paged_args = (
+        torch.as_tensor(lens + [0], **cuda),  # poss
+        torch.as_tensor([0, 1, 2, len(lens)], **cuda),  # row_slot
+        torch.as_tensor(tab, **cuda),
+        torch.as_tensor([n + 1 for n in lens] + [0], **cuda),  # seq_lens
+        torch.as_tensor(src_slot + [0] * (n_pool - pid), **cuda),
+        torch.as_tensor(src_idx + [0] * (n_pool - pid), **cuda),
+    )
+
+    for dtype in (torch.float32, torch.bfloat16):
+        p = (params if dtype == torch.bfloat16 else
+             _map_tensors(params, lambda t: t.float()))
+        # the slots' caches, made once (through the kernels) and copied
+        # for every run
+        per_slot = [prefill(cfg, p, t, max_seq=max_seq)[1]["unit"]["b0"]
+                    for t in seqs]
+        slots = tuple(torch.cat([c[i] for c in per_slot], dim=1)
+                      for i in range(2))
+
+        def run(pin=None):
+            """(prefill logits [2, V], decode logits [3, V], routing of
+            the prefill, routing of the decode step)."""
+            with routing(blocks, pin and pin[2]) as pre_r:
+                pre, _ = prefill(cfg, p, prompt, max_seq=max_seq)
+            caches = {"unit": {"b0": tuple(t.clone() for t in slots)},
+                      "suffix": []}
+            with routing(blocks, pin and pin[3]) as dec_r:
+                dec, _ = decode_step_paged(cfg, p, tok, caches, *paged_args,
+                                           page_tokens=PAGE, n_pool=n_pool)
+            return pre[:, -1].float(), dec[:3, 0].float(), pre_r, dec_r
+
+        before = k5_launches()
+        kern = run()
+        check(k5_launches() > before, "reference-granite: K5 did not launch")
+        with unmoved_counters(ops, "reference-granite"):
+            plain = run()
+            pinned = run(pin=kern)
+        torch.cuda.synchronize()
+        del p, per_slot, slots
+        torch.cuda.empty_cache()
+        flips = {"prefill": routing_flips(kern[2], plain[2]),
+                 "decode": routing_flips(kern[3], plain[3], rows=len(lens))}
+        out = {"phase": "reference", "arch": cfg.name,
+               "dtype": str(dtype).replace("torch.", ""),
+               "prefill_shape": list(prompt.shape), "decode_rows": len(lens),
+               "routing_pairs": {"prefill": len(kern[2]) * prompt.numel(),
+                                 "decode": len(kern[3]) * len(lens)},
+               "routing_flip_count": {k: len(v) for k, v in flips.items()},
+               "first_flip_layer": {k: min((f[0] for f in v), default=None)
+                                    for k, v in flips.items()},
+               "routing_flips": flips,
+               "tolerance": (F32_LOGIT_ATOL if dtype == torch.float32
+                             else LOGIT_ATOL)}
+        for name, other in (("plain", plain), ("plain_pinned", pinned)):
+            for i, what in enumerate(("prefill", "decode")):
+                gap = (kern[i] - other[i]).abs().amax(dim=-1)
+                top2 = other[i].topk(2, dim=-1).values
+                out[f"{what}_max_abs_logit_diff_{name}"] = gap.tolist()
+                out[f"{what}_argmax_equal_{name}"] = (
+                    kern[i].argmax(-1) == other[i].argmax(-1)).tolist()
+                out[f"{what}_top2_margin_{name}"] = (
+                    top2[:, 0] - top2[:, 1]).tolist()
+                out[f"{what}_near_tie_{name}"] = [
+                    2 * bf16_ulp(row) for row in other[i]]
+        emit(out)
+        for i, what in enumerate(("prefill", "decode")):
+            check(torch.isfinite(kern[i]).all().item(),
+                  f"reference-granite {dtype}: non-finite {what} logits")
+        f32 = dtype == torch.float32
+        held = "plain" if f32 else "plain_pinned"
+        if f32:
+            check(not flips["prefill"] and not flips["decode"],
+                  f"reference-granite f32: routing differs: {flips}")
+        for what in ("prefill", "decode"):
+            gaps = out[f"{what}_max_abs_logit_diff_{held}"]
+            check(max(gaps) <= out["tolerance"],
+                  f"reference-granite {dtype} {what}: logits against "
+                  f"{held} differ by {max(gaps)}")
+            for row, (same, margin, tie) in enumerate(zip(
+                    out[f"{what}_argmax_equal_{held}"],
+                    out[f"{what}_top2_margin_{held}"],
+                    out[f"{what}_near_tie_{held}"])):
+                check(same or (not f32 and margin < tie),
+                      f"reference-granite {dtype} {what} row {row}: argmax "
+                      f"differs with a top-2 margin of {margin}")
+            if not f32:
+                share = (out["routing_flip_count"][what]
+                         / out["routing_pairs"][what])
+                unpinned = max(out[f"{what}_max_abs_logit_diff_plain"])
+                check(share <= UNPINNED_FLIP_SHARE,
+                      f"reference-granite bf16 {what}: {share:.3f} of "
+                      f"(layer, token) expert sets differ unpinned")
+                check(unpinned <= UNPINNED_LOGIT_ATOL,
+                      f"reference-granite bf16 {what}: unpinned logits "
+                      f"differ by {unpinned}")
+
+
+def _map_tensors(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return fn(tree)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -806,10 +1231,14 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=DEV)
     kres = kernel_phase(torch, F, pd, ref, flush)
     kres.update(attention_kernel_phase(torch, F, ref, flush))
+    m_cfg = ARCHS["granite-moe-3b-a800m"]
+    gmm, gmm_checked = gmm_kernel_phase(torch, ref, flush, gmm_cases(m_cfg))
+    kres.update(gmm)
     del flush
 
     # the engine calls the model through these names: count the calls
-    calls = count_calls(engine_module, ("prefill", "decode_step"))
+    calls = count_calls(engine_module,
+                        ("prefill", "decode_step", "decode_step_paged"))
 
     cfg = ARCHS["internlm2-1.8b"]
     params = init_params(torch, cfg, init_model)
@@ -827,6 +1256,15 @@ def main() -> int:
     g_params = init_params(torch, g_cfg, init_model)
     g3 = serve_gemma3(torch, g_cfg, g_params, ops, calls)
     reference_gemma3(torch, g_cfg, g_params, ops)
+    del g_params
+    torch.cuda.empty_cache()
+
+    m_params = init_params(torch, m_cfg, init_model)
+    moe = serve_granite(torch, m_cfg, m_params, ops, calls, ref, gmm_checked)
+    with gmm_shapes(ops) as shapes:
+        reference_granite(torch, m_cfg, m_params, ops)
+    check_launched_gmm_shapes(torch, ref, shapes, gmm_checked,
+                              "reference-granite")
 
     replaces = {
         "paged_decode_attention": "src/repro/kernels/paged_decode.py:187",
@@ -834,16 +1272,18 @@ def main() -> int:
             "src/repro/kernels/paged_decode.py:132",
         "flash_attention": "src/repro/kernels/flash_attention.py:82",
         "decode_attention": "src/repro/kernels/decode_attention.py:71",
+        "grouped_matmul": "src/repro/kernels/moe_gmm.py:41",
     }
     source = {
         "paged_decode_attention": "paged_decode.cu",
         "paged_decode_attention_int8": "paged_decode.cu",
         "flash_attention": "flash_attention.cu",
         "decode_attention": "decode_attention.cu",
+        "grouped_matmul": "grouped_matmul.cu",
     }
-    # launches on the main path: the sum over the three serving runs,
+    # launches on the main path: the sum over the four serving runs,
     # each counted from zero
-    runs = (f32, i8, g3)
+    runs = (f32, i8, g3, moe)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{source[name]}",

@@ -13,9 +13,12 @@ from .base import (
     SHAPES,
 )
 from .gemma3_1b import CONFIG as gemma3_1b
+from .granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
 from .internlm2_1_8b import CONFIG as internlm2_1_8b
 
-ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [internlm2_1_8b, gemma3_1b]}
+ARCHS: Dict[str, ArchConfig] = {
+    c.name: c for c in [internlm2_1_8b, gemma3_1b, granite_moe_3b_a800m]
+}
 
 
 def get_arch(name: str) -> ArchConfig:

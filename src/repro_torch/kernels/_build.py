@@ -50,6 +50,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "launch_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     *[_L] * 8, _I, _F, _I, _P],
     },
+    "grouped_matmul": {
+        "launch_grouped_matmul": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
+    },
 }
 #: the kernels' dtype codes (the ``dtype`` argument of every launch)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

@@ -14,6 +14,7 @@ import torch
 
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import grouped_matmul as _gmm
 from . import paged_decode, ref
 
 #: every kernel wrapper, for counting and resetting launches
@@ -22,6 +23,7 @@ WRAPPERS = (
     paged_decode.paged_decode_attention_int8,
     _flash.flash_attention,
     _decode.decode_attention,
+    _gmm.grouped_matmul,
 )
 
 #: True inside :func:`plain_on_card` (per thread and task, not global)
@@ -101,3 +103,11 @@ def decode_attention(q, k, v, cur_pos, *, window=0):
     if _on_cpu(q):
         return ref.decode_attention_ref(q, k, v, cur_pos, window=window)
     return _decode.decode_attention(q, k, v, cur_pos, window=window)
+
+
+def grouped_matmul(x, w):
+    """[E, C, D] x [E, D, F] -> [E, C, F] per expert, summed in f32, in
+    x's dtype (K5): the expert GEMMs of an MoE layer."""
+    if _on_cpu(x):
+        return ref.grouped_matmul_ref(x, w)
+    return _gmm.grouped_matmul(x, w)

@@ -2,7 +2,8 @@
 
 They mirror the JAX package's jnp code: f32 einsums, a masked softmax
 with the finite ``NEG_INF`` (a fully masked row averages V over every key
-instead of giving NaN), output in q's dtype.  The paged versions gather
+instead of giving NaN), output in q's dtype (in x's dtype for the
+grouped matmul).  The paged versions gather
 each row's pages first; the attention versions take grouped-query K/V
 ``[B, KV, S, hd]`` and repeat it to the q heads, as
 ``repro.models.layers`` does.
@@ -137,3 +138,12 @@ def paged_decode_attention_int8_ref(
     k = k_pool.float() * k_scales[:, None, None]
     v = v_pool.float() * v_scales[:, None, None]
     return paged_decode_attention_ref(q, k, v, page_table, seq_lens)
+
+
+def grouped_matmul_ref(
+    x: torch.Tensor,  # [E, C, D]
+    w: torch.Tensor,  # [E, D, F]
+) -> torch.Tensor:
+    """K5's plain version: ``y[e] = x[e] @ w[e]`` in f32, output in x's
+    dtype (``repro.kernels.ref.grouped_matmul_ref``)."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

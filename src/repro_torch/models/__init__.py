@@ -1,4 +1,4 @@
-"""Model assembly on torch tensors (pure full-attention stacks)."""
+"""Model assembly on torch tensors (attention stacks, dense or MoE FFNs)."""
 
 from .transformer import (
     decode_step,

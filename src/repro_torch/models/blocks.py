@@ -1,17 +1,21 @@
 """GQA attention block, full or sliding-window: init, full-sequence
-(prefill) and decode apply.
+(prefill) and decode apply; and the token-choice top-k MoE FFN, whose
+expert GEMMs run through ``kernels.ops.grouped_matmul`` (K5 on the card).
 
-The other block types of the JAX package (MLA, MoE, Mamba-2) are not
-ported yet; ROADMAP.md Queue 1 item 10 lists them.
+The other block types of the JAX package (MLA, Mamba-2) are not ported
+yet; ROADMAP.md Queue 1 item 10 lists them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..kernels import ops as kernel_ops
 from .layers import (
     apply_rope,
     chunked_attention,
@@ -122,3 +126,126 @@ def attention_decode(
     out = out.transpose(1, 2).reshape(b, 1, -1)
     y = torch.matmul(out, p["wo"])
     return y, (k_cache, v_cache)
+
+
+# ===================================================================== MoE
+def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
+    """Router [d, E] in f32; gate/up [E, d, f] and down [E, f, d] in
+    ``dtype``; normal weights scaled by 1/sqrt(d_model), as in the JAX
+    package."""
+    moe = cfg.moe
+    d, e, f = cfg.d_model, moe.num_experts, moe.d_ff_expert
+    scale = 1.0 / math.sqrt(d)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device) * scale
+
+    return {
+        "router": normal(d, e),
+        "gate": normal(e, d, f).to(dtype),
+        "up": normal(e, d, f).to(dtype),
+        "down": normal(e, f, d).to(dtype),
+    }
+
+
+def _capacity(cfg: ArchConfig, seq: int) -> int:
+    """Per-sequence expert capacity of a prefill of ``seq`` tokens."""
+    moe = cfg.moe
+    c = int(math.ceil(seq * moe.top_k / moe.num_experts * moe.capacity_factor))
+    return max(8, min(c, seq))
+
+
+def _decode_capacity(cfg: ArchConfig, rows: int) -> int:
+    """Expert capacity of one decode dispatch group of ``rows`` tokens."""
+    moe = cfg.moe
+    return max(4, int(math.ceil(
+        rows * moe.top_k / moe.num_experts * moe.capacity_factor
+    )))
+
+
+def moe_dispatch_row(x: torch.Tensor, gates: torch.Tensor, top_k: int,
+                     capacity: int):
+    """Sort-based dispatch of G independent groups at once: the JAX
+    package's ``moe_dispatch_row`` (one group) written out over a leading
+    group axis instead of vmapped.
+
+    x [G, N, d], gates [G, N, E].  Returns (xe, slot, tok, gate, keep):
+    slot/tok/gate/keep [G, N·k] are JAX's per group, in expert-sorted
+    order, with ``slot = expert · capacity + position`` and 0 where the
+    entry is dropped.  ``xe`` [E, G·capacity, d] holds the groups folded
+    into the capacity axis, expert e's slots of group g at rows
+    ``g·capacity .. (g+1)·capacity`` — the layout one grouped matmul over
+    all groups takes.
+
+    Parity with JAX: ``lax.top_k`` breaks ties toward the lower index (a
+    stable descending sort here), ``jnp.argsort`` is stable and
+    ``searchsorted`` left-sided.
+    """
+    g, n, e = gates.shape
+    d = x.shape[-1]
+    dev = x.device
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_vals = torch.softmax(vals[..., :top_k], dim=-1)  # renormalised
+    flat_expert = idx[..., :top_k].reshape(g, n * top_k)
+    flat_gate = top_vals.reshape(g, n * top_k)
+    flat_tok = torch.arange(n, device=dev).repeat_interleave(top_k)
+    order = torch.argsort(flat_expert, dim=-1, stable=True)
+    sorted_expert = flat_expert.gather(1, order)
+    sorted_tok = flat_tok[order]
+    sorted_gate = flat_gate.gather(1, order)
+    starts = torch.searchsorted(
+        sorted_expert, torch.arange(e, device=dev).expand(g, e).contiguous()
+    )  # [G, E]
+    pos = torch.arange(n * top_k, device=dev) - starts.gather(1, sorted_expert)
+    keep = pos < capacity
+    slot = torch.where(keep, sorted_expert * capacity + pos, 0)
+    # folded row of each kept entry; dropped ones land on a spare last row
+    group = torch.arange(g, device=dev)[:, None]
+    dest = torch.where(
+        keep, sorted_expert * (g * capacity) + group * capacity + pos,
+        e * g * capacity,
+    )
+    xe = x.new_zeros(e * g * capacity + 1, d)
+    xe[dest.reshape(-1)] = x[group, sorted_tok].reshape(-1, d)
+    return (xe[:-1].view(e, g * capacity, d), slot, sorted_tok, sorted_gate,
+            keep)
+
+
+def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+                per_row: bool = False) -> torch.Tensor:
+    """Token-choice top-k MoE with capacity dropping, as the JAX package's
+    ``moe_forward``: a prefill (s > 1) dispatches each sequence on its own
+    with ``_capacity(s)``; a decode step (s == 1) dispatches the whole
+    batch as ONE group, so rows compete for capacity and a later row
+    loses its expert once earlier rows filled it.  ``per_row`` makes
+    every decode row its own group instead — what the JAX engine's
+    per-slot vmapped decode computes (a single row never drops).
+
+    The groups fold into the capacity axis, so each of the three expert
+    products is one ``ops.grouped_matmul`` call (K5 on the card); the
+    combine adds the gated expert outputs in f32."""
+    moe = cfg.moe
+    s, d = x.shape[1], x.shape[2]
+    gates = torch.softmax(torch.matmul(x.float(), p["router"]), dim=-1)
+    one_group = s == 1 and not per_row  # the batch's rows are its tokens
+    if one_group:
+        x, gates = x.transpose(0, 1), gates.transpose(0, 1)
+    cap = _capacity(cfg, s) if s > 1 else _decode_capacity(cfg, x.shape[1])
+    groups, n = gates.shape[0], gates.shape[1]
+    xe, slot, tok, gate_w, keep = moe_dispatch_row(x, gates, moe.top_k, cap)
+    h_gate = kernel_ops.grouped_matmul(xe, p["gate"])
+    h_up = kernel_ops.grouped_matmul(xe, p["up"])
+    h = F.silu(h_gate.float()).to(x.dtype) * h_up
+    ye = kernel_ops.grouped_matmul(h, p["down"]).reshape(-1, d)
+    # combine, token by token (each token has k entries): a dropped entry
+    # reads slot 0 of its group with weight 0
+    group = torch.arange(groups, device=x.device)[:, None]
+    rows = (slot // cap) * (groups * cap) + group * cap + slot % cap
+    by_tok = torch.argsort(tok, dim=-1, stable=True)
+    weight = (gate_w * keep).gather(1, by_tok)
+    vals = ye[rows.gather(1, by_tok)].float() * weight[..., None]
+    y = vals.view(groups, n, moe.top_k, d).sum(dim=2)  # [G, N, d] f32
+    if one_group:
+        y = y.transpose(0, 1)
+    return y.to(x.dtype)

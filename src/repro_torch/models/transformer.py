@@ -8,10 +8,11 @@ the pattern), suffix blocks are a list, and a cache is
 ``[reps, batch, KV, max_seq, hd]`` in bf16.  Where JAX scans over the
 stacked unit, the port loops over its leading axis.
 
-Stacks of ``attn`` and ``local_attn`` (sliding-window) blocks run here;
-a local block's decode cache is an O(window) ring, as in the JAX package.
-Any other architecture raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+Stacks of ``attn`` and ``local_attn`` (sliding-window) blocks run here,
+each with a dense gated MLP or a token-choice MoE FFN; a local block's
+decode cache is an O(window) ring, as in the JAX package.  Any other
+architecture raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -36,21 +37,21 @@ PyTree = Any
 
 
 def _require_supported(cfg: ArchConfig) -> None:
-    """The port runs GQA attention stacks, full and sliding-window
-    (ROADMAP Queue 1 item 10 ports the rest of the zoo)."""
+    """The port runs GQA attention stacks, full and sliding-window, with
+    dense or MoE FFNs (ROADMAP Queue 1 item 10 ports the rest of the
+    zoo)."""
     stack = list(cfg.block_pattern) + list(cfg.suffix_blocks)
     if (
         cfg.mla is not None
         or cfg.ssm is not None
-        or cfg.moe is not None
         or cfg.enc_layers
         or cfg.frontend not in (None, "none")
         or not stack
         or any(bt not in ("attn", "local_attn") for bt in stack)
     ):
         raise NotImplementedError(
-            f"{cfg.name}: only dense stacks of 'attn' and 'local_attn' "
-            "blocks are ported; MoE, MLA, Mamba, shared-attention, "
+            f"{cfg.name}: only stacks of 'attn' and 'local_attn' blocks "
+            "(dense or MoE FFN) are ported; MLA, Mamba, shared-attention, "
             "encoder-decoder and vision stacks wait for ROADMAP Queue 1 "
             "item 10"
         )
@@ -87,12 +88,21 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 # -------------------------------------------------------------------- init
 def _init_block(gen, cfg: ArchConfig, dtype, device) -> dict:
-    return {
+    p = {
         "ln1": torch.zeros(cfg.d_model, dtype=dtype, device=device),
         "attn": blocks.init_attention(gen, cfg, dtype, device),
         "ln2": torch.zeros(cfg.d_model, dtype=dtype, device=device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
     }
+    if cfg.moe is None:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
+        return p
+    p["moe"] = blocks.init_moe(gen, cfg, dtype, device)
+    if cfg.moe.num_shared_experts:
+        p["shared_mlp"] = init_mlp(
+            gen, cfg.d_model,
+            cfg.moe.num_shared_experts * cfg.moe.d_ff_shared, dtype, device,
+        )
+    return p
 
 
 def _stack(trees: List[PyTree]) -> PyTree:
@@ -217,8 +227,15 @@ def _unembed(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
-def _ffn(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    return apply_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+def _ffn(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+         per_row: bool = False) -> torch.Tensor:
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" not in p:
+        return apply_mlp(p["mlp"], h)
+    y = blocks.moe_forward(p["moe"], cfg, h, per_row=per_row)
+    if "shared_mlp" in p:
+        y = y + apply_mlp(p["shared_mlp"], h)
+    return y
 
 
 def prefill(
@@ -287,7 +304,12 @@ def decode_step(
     """One decode step; returns (logits [B, 1, V], caches).
 
     The caches are updated in place (and returned): the new token's K/V
-    land at ``pos`` of each row, or only of ``rows`` when given.
+    land at ``pos`` of each row, or only of ``rows`` when given.  An MoE
+    FFN dispatches each row as its own capacity group, as the JAX engine's
+    per-slot vmapped step does (this is the engine's dense and
+    continuation step), so rows never take capacity from one another;
+    ``repro.models.decode_step`` on a batch dispatches it as one group,
+    as :func:`decode_step_paged` does here.
     """
     _require_supported(cfg)
     x = _embed(params, tokens)
@@ -298,7 +320,7 @@ def decode_step(
             rows=rows,
         )
         x = x + a
-        x = x + _ffn(p, cfg, x)
+        x = x + _ffn(p, cfg, x, per_row=True)
     return _unembed(cfg, params, x), caches
 
 
@@ -349,7 +371,9 @@ def decode_step_paged(
     out-of-bounds write.  Torch indexing raises on that index, so pad rows
     repeat row 0's write instead (row 0 is always a real row): duplicate
     writes of one value leave the cache exactly as the real write alone,
-    with no device→host read to find the real rows.
+    with no device→host read to find the real rows.  An MoE FFN
+    dispatches the whole padded batch as one capacity group, pad rows
+    (token 0, last) included, exactly as the JAX package does.
     Returns (logits [B, 1, V], caches).
     """
     _require_supported(cfg)

@@ -1784,7 +1784,10 @@ class ServingEngine:
 
         Inputs are staged host-side in numpy and shipped in ONE copy; the
         argmax runs on the device over the whole batch and comes back in
-        one transfer.  Only the active slots' caches are written.
+        one transfer.  Only the active slots' caches are written.  Each
+        slot is its own MoE dispatch group (``decode_step`` dispatches per
+        row), as in the JAX engine's per-slot vmapped step: idle slots take
+        no expert capacity from active ones.
         Returns next tokens aligned with ``active`` order.
         """
         n = self.ecfg.n_slots

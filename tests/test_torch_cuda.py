@@ -23,6 +23,7 @@ from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import ops, paged_decode, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.grouped_matmul import grouped_matmul  # noqa: E402
 from repro_torch.models import init_model  # noqa: E402
 from repro_torch.models.transformer import _quantize_pool_int8  # noqa: E402
 from repro_torch.sched import MursConfig, MursPolicy  # noqa: E402
@@ -261,3 +262,83 @@ def test_gemma3_engine_runs_prefill_and_decode_kernels(dev):
     assert len(eng.completed) == 3 and not eng.failed
     assert eng.paged_decode_ticks == 0
     assert flash_attention.launches > 0 and decode_attention.launches > 0
+
+
+GMM_SHAPES = [  # (E, C, D, F): ragged, F not a multiple of 8 (bf16 takes
+    # the CUDA-core kernel), two row blocks, granite's decode gate/up and
+    # down (paged, C 4; dense per-row over 8 slots, C 32), prefills of 32,
+    # 64, 65, 160, 400 and 1024 tokens (C 8, 16, 17, 40, 100, 256): every
+    # row block of the tensor-core kernel (16, 32, 64, 128, 256 rows)
+    (3, 5, 72, 40), (2, 3, 10, 13), (2, 300, 64, 48), (40, 4, 1536, 512),
+    (40, 4, 512, 1536), (40, 32, 1536, 512), (40, 8, 1536, 512),
+    (40, 16, 1536, 512), (40, 17, 1536, 512), (40, 40, 1536, 512),
+    (40, 40, 512, 1536), (40, 100, 1536, 512), (40, 256, 1536, 512),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,d,f", GMM_SHAPES)
+def test_grouped_matmul_kernel_matches_plain(dev, dtype, e, c, d, f):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(e * c + d + f)
+    x = torch.randn(e, c, d, generator=g, device=dev).to(dt)
+    w = (torch.randn(e, d, f, generator=g, device=dev) / math.sqrt(d)).to(dt)
+    out = grouped_matmul(x, w)
+    plain = ref.grouped_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and out.shape == (e, c, f)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), plain.float(), atol=_atol(plain),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_reads_x_through_strides(dev, dtype):
+    """x an [E, C, D] view of [C, E, D] (rows contiguous, strided
+    experts)."""
+    dt = getattr(torch, dtype)
+    x = torch.randn(6, 5, 64, device=dev).to(dt).transpose(0, 1)
+    w = (torch.randn(5, 64, 24, device=dev) / 8).to(dt)
+    out = grouped_matmul(x, w)
+    plain = ref.grouped_matmul_ref(x, w)
+    torch.testing.assert_close(out.float(), plain.float(),
+                               atol=_atol(plain), rtol=0)
+
+
+def test_grouped_matmul_wrapper_rejects_what_the_kernel_cannot_take(dev):
+    x = torch.randn(2, 3, 8, device=dev)
+    w = torch.randn(2, 8, 4, device=dev)
+    with pytest.raises(TypeError):
+        grouped_matmul(x, w.bfloat16())
+    with pytest.raises(ValueError, match="chain"):
+        grouped_matmul(x, torch.randn(2, 6, 4, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_matmul(x, w.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_matmul(x.cpu(), w)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_granite_moe_engine_runs_the_expert_kernel(dev, paged):
+    """granite-moe (smoke) serves through K5 on the card on both decode
+    paths: 3 launches per layer of every model call."""
+    ops.reset_launch_counts()
+    cfg = ARCHS["granite-moe-3b-a800m"].smoke()
+    eng = ServingEngine(
+        cfg, init_model(cfg, 0, device=dev),
+        EngineConfig(n_slots=3, max_seq=64, hbm_capacity_bytes=1e9,
+                     paged_decode=paged,
+                     policy=MursPolicy(MursConfig.for_serving(period=1.0)),
+                     device=str(dev)),
+    )
+    for i in range(3):
+        eng.submit(Request(f"A{i}", "A", list(range(10, 20 + i)), 8))
+    eng.run(max_ticks=600)
+    assert len(eng.completed) == 3 and not eng.failed
+    assert (eng.paged_decode_ticks > 0) == paged
+    # one launch per layer: K3 per prefill, K4 per decode_step, K1 per
+    # decode_step_paged; K5 three per layer of each of those calls
+    attention = (flash_attention.launches + decode_attention.launches
+                 + paged_decode.paged_decode_attention.launches)
+    assert attention > 0
+    assert grouped_matmul.launches == 3 * attention

@@ -35,7 +35,9 @@ def test_every_module_is_listed():
         "repro_torch.kernels.paged_decode",
         "repro_torch.kernels.flash_attention",
         "repro_torch.kernels.decode_attention",
+        "repro_torch.kernels.grouped_matmul",
         "repro_torch.configs.gemma3_1b",
+        "repro_torch.configs.granite_moe_3b_a800m",
         "repro_torch.models.transformer",
         "repro_torch.serve.engine",
         "repro_torch.launch.serve",
