@@ -5,12 +5,16 @@ Run from the root of a checkout::
 
     python3 chip_profile.py                                # internlm2-1.8b
     python3 chip_profile.py --arch granite-moe-3b-a800m    # the MoE model
+    python3 chip_profile.py --arch mamba2-2.7b             # Mamba-2
+    python3 chip_profile.py --arch zamba2-1.2b             # the hybrid
 
 Serves ``chip_smoke.py``'s B and C tenants on full-width internlm2-1.8b,
-or its whole granite-moe schedule (random bf16 weights from a seed),
-through the port's MURS engine and the paged-decode kernel, under
+or its whole granite-moe, mamba2 or zamba2 schedule (random bf16 weights
+from a seed), through the port's MURS engine (the paged-decode kernel on
+internlm2 and granite, the dense path on the SSM models), under
 ``torch.profiler``.  Prints one JSON line with the device's busy share of
-the window, the kernels that take the most device time, the PyTorch
+the window, the kernels that take the most device time, each of the
+port's kernels' device time and share of the busy time, the PyTorch
 operators (with their input shapes) whose own device time is largest —
 which tells a dtype cast of the unembedding weight from one of an
 activation — and those whose own host time is largest, then the
@@ -25,7 +29,17 @@ import time
 
 import chip_smoke as smoke
 
-PROFILED = ("internlm2-1.8b", "granite-moe-3b-a800m")
+PROFILED = ("internlm2-1.8b", "granite-moe-3b-a800m", "mamba2-2.7b",
+            "zamba2-1.2b")
+#: each port kernel's __global__ functions (csrc/*.cu)
+PORT_KERNELS = {
+    "paged_decode_attention": ("paged_decode_kernel",),
+    "flash_attention": ("flash_kernel",),
+    "decode_attention": ("decode_kernel",),
+    "grouped_matmul": ("gmm_mma_kernel", "gmm_simple_kernel"),
+    "ssd_scan": ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                 "ssd_chunk_output_kernel"),
+}
 
 
 def main() -> int:
@@ -51,6 +65,9 @@ def main() -> int:
     if cfg.moe is not None:
         smoke.drive(*smoke.granite_engine(cfg, params, smoke.DEV))
         eng, sched = smoke.granite_engine(cfg, params, smoke.DEV)
+    elif cfg.ssm is not None:
+        smoke.drive(*smoke.ssm_engine(cfg, params, smoke.DEV))
+        eng, sched = smoke.ssm_engine(cfg, params, smoke.DEV)
     else:
         smoke.drive(*smoke.serve_engine(cfg, params, ("B",), False))
         eng, sched = smoke.serve_engine(cfg, params, ("B", "C"), False)
@@ -69,6 +86,12 @@ def main() -> int:
                              + evt.time_range.elapsed_us())
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # device time of the port's own kernels, by the __global__ names of
+    # their CUDA sources (K6 runs three per launch)
+    port_us = {
+        k: sum(us for n, us in by_name.items() if any(g in n for g in names))
+        for k, names in PORT_KERNELS.items()
+    }
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
            if e.self_device_time_total > 0]
     top_ops = sorted(ops, key=lambda e: -e.self_device_time_total)[:10]
@@ -80,6 +103,10 @@ def main() -> int:
                 "device_busy_share": busy / wall_us if busy else None,
                 "kernel_launches": len(cuda),
                 "top_kernels_ms": [[n[:90], us / 1e3] for n, us in top],
+                "port_kernels_ms": {k: us / 1e3 for k, us in port_us.items()},
+                "port_kernels_share_of_busy": {
+                    k: us / busy if busy else None
+                    for k, us in port_us.items()},
                 "top_ops_self_device_ms": [
                     [e.key, str(e.input_shapes)[:120], e.count,
                      e.self_device_time_total / 1e3] for e in top_ops],

@@ -9,7 +9,7 @@ Phases, each printing one JSON line (or one per kernel or run):
 
 1. ``device`` — the card as ``nvidia-smi`` names it, its power limit, and
    the torch/CUDA versions;
-2. ``build`` — nvcc builds the four CUDA sources of
+2. ``build`` — nvcc builds the five CUDA sources of
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once);
 3. ``kernel`` — each kernel against its plain PyTorch version on the card,
    in the working dtype, on inputs drawn from a seeded generator: K1/K2
@@ -21,9 +21,12 @@ Phases, each printing one JSON line (or one per kernel or run):
    a windowed batch; K5 (grouped matmul) at the capacities the MoE code
    gives granite-moe's serving traffic (paged and dense decode, a prefill
    of each prompt length served, a 400- and a 1024-token prefill) and a
-   ragged smoke shape.  Kernel, plain-version and library
-   (``scaled_dot_product_attention``, ``torch.bmm``) times (cold L2),
-   and the bound from the bytes and operations each call needs;
+   ragged smoke shape; K6 (the Mamba-2 SSD scan, f32) at mamba2 prefills
+   of 32, 65, 256, 768 and 1024 tokens, a zamba2 prefill of 1024, a batch
+   of 3 and a ragged smoke shape.  Kernel, plain-version and library
+   (``scaled_dot_product_attention``, ``torch.bmm``; none computes K6)
+   times (cold L2), and the bound from the bytes and operations each
+   call needs;
 4. ``serve`` — internlm2-1.8b at full width (24 layers, d 2048, hd 128,
    vocab 92,544; random bf16 weights from a seed) served by the port's
    MURS engine over a paged KV pool sized to force suspensions, first
@@ -54,7 +57,18 @@ Phases, each printing one JSON line (or one per kernel or run):
    paged decode step from equal caches through the kernels and inside
    ``ops.plain_on_card``: logits, argmax and the (layer, token) top-k
    expert sets that differ between the two; in bf16 also the plain run
-   with every dispatch pinned to the kernel run's gates.
+   with every dispatch pinned to the kernel run's gates;
+9. ``serve-mamba2`` and ``serve-zamba2`` — mamba2-2.7b (64 Mamba-2
+   layers, d 2560, 80 heads of 64, ds 128, vocab 50,280) and zamba2-1.2b
+   ((mamba ×5, shared_attn) ×6 + mamba ×2, d 2048, ds 64, the shared
+   attention 32 heads of 64, vocab 32,000) at full width on the dense
+   path, under a pool of fewer requests' constant state than slots:
+   K6 once per Mamba layer of every ``prefill``, zamba2's shared
+   attention K3 per ``prefill`` and K4 per ``decode_step``; K1, K2 and K5
+   never.  Every K6 shape they launch is held to the plain version;
+10. ``reference`` — mamba2 and zamba2, in f32 and in bf16: a 1024- and a
+   777-token prefill and 8 decode steps through the kernels and inside
+   ``ops.plain_on_card``: logits and argmax.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1.  Without a
@@ -102,6 +116,26 @@ F32_LOGIT_ATOL = 1e-3
 #: changes the served path's routing or expert outputs goes past them.
 UNPINNED_FLIP_SHARE = 0.2
 UNPINNED_LOGIT_ATOL = 0.25
+#: serve-mamba2's and serve-zamba2's prompt lengths: A, B and C (a
+#: 64-token shared prefix and one token of its own); A makes 32 new
+#: tokens, B and C 16
+SSM_PROMPTS = {"A": 768, "B": 32, "C": 65}
+#: their simulated HBM budgets, in requests' worth of constant state (the
+#: Mamba conv tails and SSD states; zamba2's shared-attention KV grows on
+#: top): fewer than the 8 slots, so admission waits.  The counts they give
+#: come from a CPU rehearsal at the same byte model
+SSM_POOL_STATES = {"mamba2-2.7b": 5.0, "zamba2-1.2b": 6.0}
+#: K6 against its plain version, of max |plain|: the JAX package's own
+#: tolerance for its scan kernel against the sequential recurrence
+#: (tests/test_kernels.py).  Both sum the running decay in the same
+#: order; the contractions' f32 sums differ in order
+SSD_RTOL = 1e-3
+#: full-width bf16 logits of a Mamba stack, kernels against plain
+#: versions: K6's f32 sums round to bf16 a ulp apart in a few elements of
+#: every layer, and the recurrence carries that through every later
+#: layer (64 for mamba2); set from the first readings (0.031-0.054 on
+#: an H100), with about twice their room
+SSM_BF16_LOGIT_ATOL = 0.125
 
 
 class CheckFailed(Exception):
@@ -693,9 +727,7 @@ def run_and_count(torch, cfg, eng, sched, ops, calls, extra, phase="serve"):
     launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
     rep = eng.report()
     decode_only = [ms for ms, dec, chk in ticks if dec and not chk]
-    n_full = sum(bt == "attn" for bt in cfg.block_pattern) * \
-        cfg.resolved_pattern_repeats + sum(bt == "attn"
-                                           for bt in cfg.suffix_blocks)
+    n_attn, n_full, n_mamba = block_counts(cfg)
     out = {
         "phase": phase, "arch": cfg.name, **extra,
         "submitted": submitted, "completed": rep.completed,
@@ -730,9 +762,13 @@ def run_and_count(torch, cfg, eng, sched, ops, calls, extra, phase="serve"):
               and all(0 <= t < cfg.vocab for t in req.generated),
               f"{phase}: {rid} produced malformed tokens")
     check(calls["prefill"] > 0, f"{phase}: no prefill call")
-    check(launches["flash_attention"] == cfg.n_layers * calls["prefill"],
+    check(launches["flash_attention"] == n_attn * calls["prefill"],
           f"flash_attention: {launches['flash_attention']} launches != "
-          f"{cfg.n_layers} layers x {calls['prefill']} prefill calls")
+          f"{n_attn} attention layers x {calls['prefill']} prefill calls")
+    # K6: once per Mamba layer of every prefill; none on an attention stack
+    check(launches["ssd_scan"] == n_mamba * calls["prefill"],
+          f"ssd_scan: {launches['ssd_scan']} launches != {n_mamba} Mamba "
+          f"layers x {calls['prefill']} prefill calls")
     check(launches["decode_attention"] == n_full * calls["decode_step"],
           f"decode_attention: {launches['decode_attention']} launches != "
           f"{n_full} full-attention layers x {calls['decode_step']} "
@@ -748,6 +784,16 @@ def run_and_count(torch, cfg, eng, sched, ops, calls, extra, phase="serve"):
           f"{phase}: {calls['decode_step_paged']} decode_step_paged calls "
           f"!= {eng.paged_decode_ticks} paged ticks")
     return out, eng
+
+
+def block_counts(cfg):
+    """(layers that attend at prefill — K3 —, layers whose decode is a
+    full-attention K4 call, Mamba layers — K6 at prefill)."""
+    stack = (list(cfg.block_pattern) * cfg.resolved_pattern_repeats
+             + list(cfg.suffix_blocks))
+    n_mamba = sum(bt == "mamba" for bt in stack)
+    n_full = sum(bt in ("attn", "shared_attn") for bt in stack)
+    return len(stack) - n_mamba, n_full, n_mamba
 
 
 # --------------------------------------------------------------- gemma3
@@ -945,6 +991,14 @@ def granite_traffic(Request, vocab, rng):
     """A — 3 × (160-token prompt, 48 new) at ticks 1, 2 and 3; B — 4 ×
     (32, 16) at tick 0; C — 3 × (64-token shared prefix + 1 token, 16
     new), C0 at tick 0, C1 and C2 at tick 3."""
+    return three_tenants(Request, vocab, rng, GRANITE_PROMPTS, 48)
+
+
+def three_tenants(Request, vocab, rng, prompts, a_new):
+    """A — 3 × (prompts["A"] tokens, ``a_new`` new) at ticks 1, 2 and 3;
+    B — 4 × (prompts["B"], 16) at tick 0; C — 3 × (a shared prefix of
+    prompts["C"] - 1 tokens + 1 token, 16 new), C0 at tick 0, C1 and C2
+    at tick 3."""
     sched = {}
 
     def at(tick, req):
@@ -952,11 +1006,11 @@ def granite_traffic(Request, vocab, rng):
 
     for i in range(3):
         at(1 + i, Request(f"A{i}", "A", rng.integers(
-            0, vocab, GRANITE_PROMPTS["A"]).tolist(), 48))
+            0, vocab, prompts["A"]).tolist(), a_new))
     for i in range(4):
         at(0, Request(f"B{i}", "B", rng.integers(
-            0, vocab, GRANITE_PROMPTS["B"]).tolist(), 16))
-    shared = rng.integers(0, vocab, GRANITE_PROMPTS["C"] - 1).tolist()
+            0, vocab, prompts["B"]).tolist(), 16))
+    shared = rng.integers(0, vocab, prompts["C"] - 1).tolist()
     for i in range(3):
         at(0 if i == 0 else 3,
            Request(f"C{i}", "C", shared + [int(rng.integers(0, vocab))], 16))
@@ -1184,6 +1238,267 @@ def reference_granite(torch, cfg, params, ops):
                       f"differ by {unpinned}")
 
 
+# ------------------------------------------------------------ mamba2, zamba2
+def ssd_cases(m_cfg, z_cfg):
+    """(name, B, S, nh, hd, ds, chunk) of K6's kernel phase: mamba2
+    prefills of 32, 65, 256, 768 and 1024 tokens, zamba2's of 1024, a
+    batch of 3 ragged mamba2 prompts, and a ragged smoke shape."""
+    def dims(cfg):
+        ssm = cfg.ssm
+        return (ssm.n_heads(cfg.d_model), ssm.head_dim, ssm.d_state,
+                ssm.chunk_size)
+
+    cases = [(f"mamba2_s{s}", 1, s, *dims(m_cfg))
+             for s in (32, 65, 256, 768, 1024)]
+    cases.append(("zamba2_s1024", 1, 1024, *dims(z_cfg)))
+    cases.append(("mamba2_b3_s300", 3, 300, *dims(m_cfg)))
+    return cases + [("smoke", 1, 45, 3, 16, 8, 32)]
+
+
+#: the K6 case in the kernels line: the shape the two serve runs give
+#: the kernel most often (a B prompt's prefill)
+SSD_LINE_CASE = "mamba2_s32"
+
+
+def ssd_inputs(torch, gen, b, s, nh, hd, ds):
+    """Model-like f32 inputs: SiLU outputs for x, B and C, dt a softplus
+    of a normal, and the model's A = -exp(log(linspace(1, 16, nh)))."""
+    def silu(*shape):
+        return torch.nn.functional.silu(
+            torch.randn(*shape, generator=gen, device=DEV))
+
+    x = silu(b, s, nh, hd)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, nh, generator=gen, device=DEV))
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, nh, device=DEV)))
+    return x, dt, A, silu(b, s, ds), silu(b, s, ds)
+
+
+def ssd_check(torch, ref, args, chunk, what):
+    """K6 against its plain version: finite, and within SSD_RTOL of max
+    |plain|; returns (error, tolerance)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    out = ssd_scan(*args, chunk)
+    gold = ref.ssd_scan_ref(*args, chunk)
+    torch.cuda.synchronize()
+    err = (out - gold).abs().max().item()
+    atol = SSD_RTOL * gold.abs().max().item()
+    check(torch.isfinite(out).all().item(), f"ssd_scan {what}: non-finite")
+    check(err <= atol, f"ssd_scan {what}: max err {err} > {atol}")
+    return err, atol
+
+
+def ssd_work(b, s, nh, hd, ds, chunk):
+    """(bytes, operations) one scan needs: x, dt, A, B and C read once
+    and y written once, in f32; C B^T over each chunk's causal pairs once
+    (the heads share B and C), and per head the pairs' M x, C . H_in for
+    every chunk after the first and the outgoing state of every chunk
+    but the last, 2 operations a multiply-add."""
+    n_bytes = 4 * (2 * b * s * nh * hd + b * s * nh + nh + 2 * b * s * ds)
+    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    carried = sum(lens[1:]) + sum(lens[:-1])
+    flops = b * (2 * pairs * ds + nh * (2 * pairs * hd
+                                        + 2 * carried * hd * ds))
+    return n_bytes, flops
+
+
+def ssd_kernel_phase(torch, ref, flush, cases):
+    """K6 against its plain version in f32 at ``cases``; returns its
+    kernels-line entry and the set of (B, S, nh, hd, ds, chunk) checked.
+    No single PyTorch call computes the scan: library_ms is null."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    results, max_err, checked = {}, 0.0, set()
+    for name, b, s, nh, hd, ds, chunk in cases:
+        args = ssd_inputs(torch, gen, b, s, nh, hd, ds)
+        err, atol = ssd_check(torch, ref, args, chunk, name)
+        checked.add((b, s, nh, hd, ds, chunk))
+        max_err = max(max_err, err)
+        n_bytes, flops = ssd_work(b, s, nh, hd, ds, chunk)
+        bound_ms, bound_by = bound(n_bytes, flops, torch.float32, torch)
+        r = {
+            "phase": "kernel", "name": "ssd_scan", "case": name,
+            "shape": {"B": b, "S": s, "nh": nh, "hd": hd, "ds": ds,
+                      "chunk": chunk},
+            "max_abs_err": err, "tolerance": atol,
+            "ms": time_ms(torch, lambda: ssd_scan(*args, chunk), flush),
+            "plain_ms": time_ms(
+                torch, lambda: ref.ssd_scan_ref(*args, chunk), flush),
+            "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": n_bytes, "flops": flops,
+        }
+        emit(r)
+        results[name] = r
+    return {"ssd_scan": {**results[SSD_LINE_CASE],
+                         "max_abs_err": max_err}}, checked
+
+
+@contextlib.contextmanager
+def ssd_shapes(ops):
+    """Count the (B, S, nh, hd, ds, chunk) of every ``ops`` SSD scan made
+    inside the block (the model calls it by this name); yields the
+    dict."""
+    scan = ops.ssd_scan
+    seen = {}
+
+    def recording(x, dt, A, Bm, C, chunk):
+        key = (*x.shape, Bm.shape[-1], chunk)
+        seen[key] = seen.get(key, 0) + 1
+        return scan(x, dt, A, Bm, C, chunk)
+
+    ops.ssd_scan = recording
+    try:
+        yield seen
+    finally:
+        ops.ssd_scan = scan
+
+
+def check_launched_ssd_shapes(torch, ref, shapes, checked, what):
+    """Hold K6 to its plain version at every recorded shape the kernel
+    phase did not check; emit what was done and how often each shape
+    ran."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    new = []
+    for key in sorted(shapes):
+        if key in checked:
+            continue
+        b, s, nh, hd, ds, chunk = key
+        err, atol = ssd_check(torch, ref, ssd_inputs(torch, gen, b, s, nh,
+                                                     hd, ds),
+                              chunk, f"{what} {key}")
+        checked.add(key)
+        new.append({"shape": list(key), "max_abs_err": err,
+                    "tolerance": atol})
+    emit({"phase": "kernel-at-launched-shapes", "name": "ssd_scan",
+          "of": what, "shapes_launched": len(shapes),
+          "launches_by_shape": [[list(k), n] for k, n in
+                                sorted(shapes.items())],
+          "checked_here": new})
+
+
+def ssm_engine(cfg, params, device):
+    """mamba2's or zamba2's engine and arrival schedule: the dense path
+    (neither is paged), MURS, 8 slots, max_seq 1024, page 16, prefix cache
+    on, a 1024-token prefill budget (every prompt in one ``prefill``
+    call, K6 on whole chunks) and an HBM budget of SSM_POOL_STATES
+    requests' constant state."""
+    from repro_torch.sched import MursConfig, MursPolicy
+    from repro_torch.serve import EngineConfig, Request, ServingEngine
+
+    eng = ServingEngine(
+        cfg, params,
+        EngineConfig(
+            n_slots=N_SLOTS, max_seq=MAX_SEQ,
+            hbm_capacity_bytes=SSM_POOL_STATES[cfg.name]
+            * cfg.constant_state_bytes(),
+            policy=MursPolicy(MursConfig.for_serving(period=1.0)),
+            prefix_cache=True, prefill_chunk_tokens=1024, device=device,
+        ),
+    )
+    return eng, three_tenants(Request, cfg.vocab,
+                              np.random.default_rng(SEED), SSM_PROMPTS, 32)
+
+
+def serve_ssm(torch, cfg, params, ops, calls, ref, checked):
+    phase = "serve-" + cfg.name.split("-")[0]
+    eng, sched = ssm_engine(cfg, params, DEV)
+    with ssd_shapes(ops) as shapes:
+        out, eng = run_and_count(torch, cfg, eng, sched, ops, calls, {},
+                                 phase=phase)
+    check_launched_ssd_shapes(torch, ref, shapes, checked, phase)
+    launches = out["launches"]
+    for name in ("paged_decode_attention", "paged_decode_attention_int8",
+                 "grouped_matmul"):
+        check(launches[name] == 0, f"{phase}: {name} launched")
+    check(calls["decode_step_paged"] == 0 and eng.paged_decode_ticks == 0,
+          f"{phase}: a paged decode step on an unpaged model")
+    check(launches["ssd_scan"] > 0, f"{phase}: K6 never launched")
+    check(out["suspensions"] >= 1, f"{phase}: no suspension")
+    return out
+
+
+def reference_ssm(torch, cfg, params, ops, prompts=(1024, 777), steps=8):
+    """mamba2 or zamba2 at full width, in f32 (the bf16 parameters cast
+    up) and in bf16: a prefill of each prompt length (1024 tokens, four
+    whole chunks; 777, a ragged last chunk) and ``steps`` decode steps,
+    through the kernels (K6 at prefill; zamba2's shared attention K3 and
+    K4) and inside ``ops.plain_on_card``; both decode chains start from
+    the kernel prefill's caches.  f32: logits within F32_LOGIT_ATOL and
+    argmax equal in every row.  bf16: logits within SSM_BF16_LOGIT_ATOL,
+    and argmax equal unless the plain run's top-2 margin is under two
+    bf16 ulps of the row's largest |logit|."""
+    from repro_torch.models import decode_step, prefill
+
+    rng = np.random.default_rng(SEED + 7)
+    _, _, n_mamba = block_counts(cfg)
+    for dtype in (torch.float32, torch.bfloat16):
+        p = (params if dtype == torch.bfloat16 else
+             _map_tensors(params, lambda t: t.float()))
+        f32 = dtype == torch.float32
+        for prompt in prompts:
+            toks = torch.as_tensor(
+                rng.integers(0, cfg.vocab, (1, prompt + steps)), device=DEV)
+            poss = torch.arange(prompt, prompt + steps, dtype=torch.int32,
+                                device=DEV)
+            max_seq = prompt + steps
+
+            def decode(caches):
+                out = []
+                for i in range(steps):
+                    logits, caches = decode_step(
+                        cfg, p, toks[:, prompt + i:prompt + i + 1], caches,
+                        poss[i:i + 1])
+                    out.append(logits[:, 0])
+                return out
+
+            ops.reset_launch_counts()
+            pre_k, caches = prefill(cfg, p, toks[:, :prompt],
+                                    max_seq=max_seq)
+            launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+            start = _map_tensors(caches, lambda t: t.clone())
+            kern = torch.cat([pre_k[:, -1]] + decode(caches)).float()
+            with unmoved_counters(ops, f"reference-{cfg.name}"):
+                pre_p, _ = prefill(cfg, p, toks[:, :prompt],
+                                   max_seq=max_seq)
+                plain = torch.cat([pre_p[:, -1]] + decode(start)).float()
+            torch.cuda.synchronize()
+            gap = (kern - plain).abs().amax(dim=-1)
+            top2 = plain.topk(2, dim=-1).values
+            out = {"phase": "reference", "arch": cfg.name,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "prompt": prompt, "decode_steps": steps,
+                   "max_abs_logit_diff": gap.max().item(),
+                   "per_row_max_abs_logit_diff": gap.tolist(),
+                   "argmax_equal": (kern.argmax(-1)
+                                    == plain.argmax(-1)).tolist(),
+                   "top2_margin": (top2[:, 0] - top2[:, 1]).tolist(),
+                   "near_tie": [2 * bf16_ulp(row) for row in plain],
+                   "tolerance": (F32_LOGIT_ATOL if f32
+                                 else SSM_BF16_LOGIT_ATOL),
+                   "prefill_launches": launches}
+            emit(out)
+            what = f"reference-{cfg.name} {out['dtype']} S {prompt}"
+            check(torch.isfinite(kern).all().item(), f"{what}: non-finite")
+            check(launches["ssd_scan"] == n_mamba,
+                  f"{what}: {launches['ssd_scan']} K6 launches != "
+                  f"{n_mamba} Mamba layers")
+            check(out["max_abs_logit_diff"] <= out["tolerance"],
+                  f"{what}: logits differ by {out['max_abs_logit_diff']}")
+            for row, (same, margin, tie) in enumerate(zip(
+                    out["argmax_equal"], out["top2_margin"],
+                    out["near_tie"])):
+                check(same or (not f32 and margin < tie),
+                      f"{what} row {row}: argmax differs with a top-2 "
+                      f"margin of {margin}")
+            del caches, start
+        del p
+        torch.cuda.empty_cache()
+
+
 def _map_tensors(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tensors(v, fn) for k, v in tree.items()}
@@ -1234,6 +1549,10 @@ def main() -> int:
     m_cfg = ARCHS["granite-moe-3b-a800m"]
     gmm, gmm_checked = gmm_kernel_phase(torch, ref, flush, gmm_cases(m_cfg))
     kres.update(gmm)
+    s_cfg, z_cfg = ARCHS["mamba2-2.7b"], ARCHS["zamba2-1.2b"]
+    ssd, ssd_checked = ssd_kernel_phase(torch, ref, flush,
+                                        ssd_cases(s_cfg, z_cfg))
+    kres.update(ssd)
     del flush
 
     # the engine calls the model through these names: count the calls
@@ -1265,6 +1584,20 @@ def main() -> int:
         reference_granite(torch, m_cfg, m_params, ops)
     check_launched_gmm_shapes(torch, ref, shapes, gmm_checked,
                               "reference-granite")
+    del m_params
+    torch.cuda.empty_cache()
+
+    ssm_runs = []
+    for cfg in (s_cfg, z_cfg):
+        params = init_params(torch, cfg, init_model)
+        ssm_runs.append(serve_ssm(torch, cfg, params, ops, calls, ref,
+                                  ssd_checked))
+        with ssd_shapes(ops) as shapes:
+            reference_ssm(torch, cfg, params, ops)
+        check_launched_ssd_shapes(torch, ref, shapes, ssd_checked,
+                                  f"reference-{cfg.name}")
+        del params
+        torch.cuda.empty_cache()
 
     replaces = {
         "paged_decode_attention": "src/repro/kernels/paged_decode.py:187",
@@ -1273,6 +1606,7 @@ def main() -> int:
         "flash_attention": "src/repro/kernels/flash_attention.py:82",
         "decode_attention": "src/repro/kernels/decode_attention.py:71",
         "grouped_matmul": "src/repro/kernels/moe_gmm.py:41",
+        "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
     }
     source = {
         "paged_decode_attention": "paged_decode.cu",
@@ -1280,10 +1614,11 @@ def main() -> int:
         "flash_attention": "flash_attention.cu",
         "decode_attention": "decode_attention.cu",
         "grouped_matmul": "grouped_matmul.cu",
+        "ssd_scan": "ssd_scan.cu",
     }
-    # launches on the main path: the sum over the four serving runs,
-    # each counted from zero
-    runs = (f32, i8, g3, moe)
+    # launches on the main path: the sum over the six serving runs, each
+    # counted from zero
+    runs = (f32, i8, g3, moe, *ssm_runs)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{source[name]}",
@@ -1308,7 +1643,13 @@ def init_params(torch, cfg, init_model):
     torch.cuda.synchronize()
     emit({"phase": "init", "arch": cfg.name, "layers": cfg.n_layers,
           "d_model": cfg.d_model, "head_dim": cfg.head_dim,
-          "kv_groups": cfg.n_heads // cfg.n_kv_heads, "vocab": cfg.vocab,
+          "kv_groups": (cfg.n_heads // cfg.n_kv_heads if cfg.n_kv_heads
+                        else None), "vocab": cfg.vocab,
+          "ssm": (None if cfg.ssm is None else {
+              "d_inner": cfg.ssm.d_inner(cfg.d_model),
+              "heads": cfg.ssm.n_heads(cfg.d_model),
+              "head_dim": cfg.ssm.head_dim, "d_state": cfg.ssm.d_state,
+              "chunk": cfg.ssm.chunk_size}),
           "kv_bytes_per_token": cfg.kv_bytes_per_token(),
           "constant_state_bytes": cfg.constant_state_bytes(),
           "param_gib": sum(

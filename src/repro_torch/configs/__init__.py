@@ -15,9 +15,13 @@ from .base import (
 from .gemma3_1b import CONFIG as gemma3_1b
 from .granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
 from .internlm2_1_8b import CONFIG as internlm2_1_8b
+from .mamba2_2_7b import CONFIG as mamba2_2_7b
+from .zamba2_1_2b import CONFIG as zamba2_1_2b
 
 ARCHS: Dict[str, ArchConfig] = {
-    c.name: c for c in [internlm2_1_8b, gemma3_1b, granite_moe_3b_a800m]
+    c.name: c
+    for c in [internlm2_1_8b, gemma3_1b, granite_moe_3b_a800m, mamba2_2_7b,
+              zamba2_1_2b]
 }
 
 

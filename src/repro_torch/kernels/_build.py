@@ -53,6 +53,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "grouped_matmul": {
         "launch_grouped_matmul": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
     },
+    "ssd_scan": {
+        "launch_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 #: the kernels' dtype codes (the ``dtype`` argument of every launch)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

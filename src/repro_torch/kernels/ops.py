@@ -16,6 +16,7 @@ from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import grouped_matmul as _gmm
 from . import paged_decode, ref
+from . import ssd_scan as _ssd
 
 #: every kernel wrapper, for counting and resetting launches
 WRAPPERS = (
@@ -24,6 +25,7 @@ WRAPPERS = (
     _flash.flash_attention,
     _decode.decode_attention,
     _gmm.grouped_matmul,
+    _ssd.ssd_scan,
 )
 
 #: True inside :func:`plain_on_card` (per thread and task, not global)
@@ -111,3 +113,11 @@ def grouped_matmul(x, w):
     if _on_cpu(x):
         return ref.grouped_matmul_ref(x, w)
     return _gmm.grouped_matmul(x, w)
+
+
+def ssd_scan(x, dt, A, Bm, C, chunk):
+    """[B, S, nh, hd] Mamba-2 chunked SSD scan in f32, without the D skip
+    and the gate (K6): every Mamba-2 prefill layer."""
+    if _on_cpu(x):
+        return ref.ssd_scan_ref(x, dt, A, Bm, C, chunk)
+    return _ssd.ssd_scan(x, dt, A, Bm, C, chunk)

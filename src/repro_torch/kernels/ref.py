@@ -3,7 +3,7 @@
 They mirror the JAX package's jnp code: f32 einsums, a masked softmax
 with the finite ``NEG_INF`` (a fully masked row averages V over every key
 instead of giving NaN), output in q's dtype (in x's dtype for the
-grouped matmul).  The paged versions gather
+grouped matmul, f32 for the SSD scan).  The paged versions gather
 each row's pages first; the attention versions take grouped-query K/V
 ``[B, KV, S, hd]`` and repeat it to the q heads, as
 ``repro.models.layers`` does.
@@ -147,3 +147,67 @@ def grouped_matmul_ref(
     """K5's plain version: ``y[e] = x[e] @ w[e]`` in f32, output in x's
     dtype (``repro.kernels.ref.grouped_matmul_ref``)."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # [B, S, nh, hd]
+    dt: torch.Tensor,  # [B, S, nh] f32, post-softplus
+    A: torch.Tensor,  # [nh] f32, negative
+    Bm: torch.Tensor,  # [B, S, ds]
+    C: torch.Tensor,  # [B, S, ds]
+    chunk: int,
+) -> torch.Tensor:
+    """K6's plain version: the Mamba-2 chunked SSD scan, step for step as
+    ``repro.models.blocks._ssd_scan`` (the function the JAX model runs),
+    in f32.  S is zero-padded up to a multiple of ``chunk`` (a pad
+    position has dt = 0, so it neither decays nor feeds the state) and
+    the pad rows are sliced off again.  Returns y [B, S, nh, hd] f32,
+    without the D-skip and the gate."""
+    b, s, nh, hd = x.shape
+    ds = Bm.shape[-1]
+    nc = (s + chunk - 1) // chunk
+    pad = nc * chunk - s
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, pad))
+    xc = x.reshape(b, nc, chunk, nh, hd).float()
+    dtc = dt.reshape(b, nc, chunk, nh).float()
+    Bc = Bm.reshape(b, nc, chunk, ds).float()
+    Cc = C.reshape(b, nc, chunk, ds).float()
+
+    dA = dtc * A.float()[None, None, None, :]  # [b, nc, q, nh] (negative)
+    seg = torch.cumsum(dA, dim=2)  # cumulative decay within the chunk
+    total = seg[:, :, -1, :]  # [b, nc, nh]
+
+    # intra-chunk, attention form; mask BEFORE exp (the upper triangle's
+    # rel is large and positive and would overflow to inf)
+    rel = seg[:, :, :, None, :] - seg[:, :, None, :, :]  # [b,nc,qi,qj,nh]
+    causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device)
+    causal = torch.tril(causal)[None, None, :, :, None]
+    L = torch.exp(torch.where(causal, rel, float("-inf")))
+    scores = torch.einsum("bcid,bcjd->bcij", Cc, Bc)
+    M = scores[..., None] * L * dtc[:, :, None, :, :]  # [b,nc,qi,qj,nh]
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", M, xc)
+
+    # per-chunk outgoing state  S_c = sum_j exp(total - seg_j) dt_j B_j x_j
+    decay_out = torch.exp(total[:, :, None, :] - seg)  # [b, nc, q, nh]
+    wx = (decay_out * dtc)[..., None] * xc  # [b, nc, q, nh, hd]
+    S_c = torch.einsum("bcqd,bcqhp->bchpd", Bc, wx)  # [b, nc, nh, hd, ds]
+
+    # inter-chunk recurrence  H_c = exp(total_c) H_{c-1} + S_c; chunk c
+    # reads the state that came IN
+    H = torch.zeros(b, nh, hd, ds, dtype=torch.float32, device=x.device)
+    H_in = []
+    for c in range(nc):
+        H_in.append(H)
+        H = torch.exp(total[:, c])[:, :, None, None] * H + S_c[:, c]
+    H_in = torch.stack(H_in, dim=1)  # [b, nc, nh, hd, ds]
+
+    # inter-chunk contribution  y_i += exp(seg_i) C_i . H_in
+    y_inter = torch.einsum("bcqd,bchpd->bcqhp", Cc, H_in) * torch.exp(
+        seg
+    )[..., None]
+    y = (y_intra + y_inter).reshape(b, nc * chunk, nh, hd)
+    return y[:, :s] if pad else y

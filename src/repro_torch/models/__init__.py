@@ -1,4 +1,5 @@
-"""Model assembly on torch tensors (attention stacks, dense or MoE FFNs)."""
+"""Model assembly on torch tensors: attention stacks with dense or MoE FFNs,
+and Mamba-2 stacks with or without zamba2's shared attention."""
 
 from .transformer import (
     decode_step,

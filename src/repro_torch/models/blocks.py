@@ -1,9 +1,11 @@
 """GQA attention block, full or sliding-window: init, full-sequence
-(prefill) and decode apply; and the token-choice top-k MoE FFN, whose
-expert GEMMs run through ``kernels.ops.grouped_matmul`` (K5 on the card).
+(prefill) and decode apply; the token-choice top-k MoE FFN, whose expert
+GEMMs run through ``kernels.ops.grouped_matmul`` (K5 on the card); and
+the Mamba-2 block, whose prefill scan runs through ``kernels.ops.ssd_scan``
+(K6 on the card).
 
-The other block types of the JAX package (MLA, Mamba-2) are not ported
-yet; ROADMAP.md Queue 1 item 10 lists them.
+MLA, the other block type of the JAX package, is not ported yet;
+ROADMAP.md Queue 1 item 10 lists it.
 """
 
 from __future__ import annotations
@@ -249,3 +251,156 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     if one_group:
         y = y.transpose(0, 1)
     return y.to(x.dtype)
+
+
+# ================================================================== Mamba-2
+def init_mamba(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
+    """Mamba-2 block with split projections (z, x, B, C, dt), as in the
+    JAX package: depthwise conv weights ``[d_conv, width]`` drawn from
+    N(0, 0.1²), and in f32 ``A_log = log(linspace(1, 16, nh))``, ``D = 1``
+    and ``dt_bias = 0``."""
+    ssm = cfg.ssm
+    d = cfg.d_model
+    di = ssm.d_inner(d)
+    nh = ssm.n_heads(d)
+
+    def conv(width):
+        w = torch.randn((ssm.d_conv, width), generator=gen,
+                        dtype=torch.float32, device=device)
+        return (w * 0.1).to(dtype)
+
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "w_z": dense_init(gen, d, di, dtype, device),
+        "w_x": dense_init(gen, d, di, dtype, device),
+        "w_B": dense_init(gen, d, ssm.d_state, dtype, device),
+        "w_C": dense_init(gen, d, ssm.d_state, dtype, device),
+        "w_dt": dense_init(gen, d, nh, dtype, device),
+        "conv_x": conv(di),
+        "conv_B": conv(ssm.d_state),
+        "conv_C": conv(ssm.d_state),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nh, **f32)),
+        "D": torch.ones(nh, **f32),
+        "dt_bias": torch.zeros(nh, **f32),
+        "out_proj": dense_init(gen, di, d, dtype, device),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, s: int) -> torch.Tensor:
+    """Depthwise causal conv along seq; x [B, S, C], w [d_conv, C].  In
+    x's dtype, rounded after every product and every add, as the JAX
+    package's Python ``sum`` of bf16 terms is."""
+    d_conv = w.shape[0]
+    x_pad = F.pad(x, (0, 0, d_conv - 1, 0))
+    return sum(x_pad[:, i:i + s] * w[i][None, None, :] for i in range(d_conv))
+
+
+def _ssd_scan(x, dt, A, B, C, chunk: int) -> torch.Tensor:
+    """Chunked SSD scan [arXiv:2405.21060 §6] through ``kernels.ops``
+    (K6 on the card, ``ref.ssd_scan_ref`` on the CPU).  x [b, s, nh, hd],
+    dt [b, s, nh], A [nh], B and C [b, s, ds], all f32; y f32."""
+    return kernel_ops.ssd_scan(x, dt, A, B, C, chunk)
+
+
+def mamba_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+                  return_cache: bool = False):
+    """Mamba-2 block over a sequence (prefill); with ``return_cache`` also
+    (conv_x tail, conv_B tail, conv_C tail, SSD state): the last
+    ``d_conv - 1`` positions of the bf16 projections (fewer when the
+    sequence is shorter, as in the JAX package) and the f32 state
+    [B, nh, hd, ds].  bf16 rounds where the JAX package's does: the
+    projections, the conv, ``y`` before the gate, the gate product."""
+    ssm = cfg.ssm
+    b, s, d = x.shape
+    di = ssm.d_inner(d)
+    nh = ssm.n_heads(d)
+    z = torch.matmul(x, p["w_z"])
+    x_in = torch.matmul(x, p["w_x"])
+    B_in = torch.matmul(x, p["w_B"])
+    C_in = torch.matmul(x, p["w_C"])
+    dt_raw = torch.matmul(x, p["w_dt"])
+
+    xc = F.silu(_causal_conv(x_in, p["conv_x"], s).float())
+    Bc = F.silu(_causal_conv(B_in, p["conv_B"], s).float())
+    Cc = F.silu(_causal_conv(C_in, p["conv_C"], s).float())
+
+    xs = xc.reshape(b, s, nh, ssm.head_dim)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+
+    y = _ssd_scan(xs, dt, A, Bc, Cc, ssm.chunk_size)
+    y = y + p["D"][None, None, :, None] * xs
+    y = y.reshape(b, s, di).to(x.dtype)
+    y = y * F.silu(z.float()).to(x.dtype)
+    out = torch.matmul(y, p["out_proj"])
+    if return_cache:
+        tail = ssm.d_conv - 1
+        cache = (
+            x_in[:, -tail:],
+            B_in[:, -tail:],
+            C_in[:, -tail:],
+            _final_state(xs, dt, A, Bc),
+        )
+        return out, cache
+    return out
+
+
+def _final_state(xs, dt, A, B) -> torch.Tensor:
+    """Final SSM state  H = sum_j exp(sum_{l>j} dA_l) dt_j B_j x_j  (f32),
+    [b, nh, hd, ds]: plain torch, as the JAX package's is plain jnp."""
+    dA = dt * A[None, None, :]
+    seg = torch.cumsum(dA, dim=1)
+    total = seg[:, -1:, :]
+    decay = torch.exp(total - seg)  # [b, s, nh]
+    wx = (decay * dt)[..., None] * xs.float()
+    return torch.einsum("bsd,bshp->bhpd", B, wx)
+
+
+def mamba_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache, pos,
+                 *, rows: Optional[torch.Tensor] = None):
+    """Single-token Mamba-2 step: O(1) state update, plain torch (the JAX
+    package's is plain jnp).  ``cache`` is (conv_x tail, conv_B tail,
+    conv_C tail, SSD state), updated IN PLACE — only ``rows`` when given,
+    so the other rows keep their recurrent state bit for bit, as the JAX
+    engine's masked vmapped step keeps it.  ``pos`` is unused: the state
+    carries the position.  The step's conv is a dot over the window (f32
+    sum, one bf16 rounding), as the JAX package's einsum is; it rounds
+    otherwise than the prefill conv, in both packages."""
+    ssm = cfg.ssm
+    b, _, d = x.shape
+    di = ssm.d_inner(d)
+    nh = ssm.n_heads(d)
+    cx, cB, cC, state = cache
+    x0 = x[:, 0]
+    z = torch.matmul(x0, p["w_z"])
+    x_in = torch.matmul(x0, p["w_x"])
+    B_in = torch.matmul(x0, p["w_B"])
+    C_in = torch.matmul(x0, p["w_C"])
+    dt_raw = torch.matmul(x0, p["w_dt"])
+
+    def step_conv(tail, new, w):
+        window = torch.cat([tail, new[:, None]], dim=1)  # [b, d_conv, c]
+        out = (window.float() * w.float()[None]).sum(dim=1).to(window.dtype)
+        return F.silu(out.float()), window[:, 1:]
+
+    xc, new_cx = step_conv(cx, x_in, p["conv_x"])
+    Bc, new_cB = step_conv(cB, B_in, p["conv_B"])
+    Cc, new_cC = step_conv(cC, C_in, p["conv_C"])
+    xs = xc.reshape(b, nh, ssm.head_dim)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # [b, nh]
+    A = -torch.exp(p["A_log"])
+
+    decay = torch.exp(dt * A[None, :])  # [b, nh]
+    new_state = decay[:, :, None, None] * state + torch.einsum(
+        "bd,bhp->bhpd", Bc, dt[..., None] * xs
+    )
+    y = torch.einsum("bhpd,bd->bhp", new_state, Cc)  # [b, nh, hd]
+    y = y + p["D"][None, :, None] * xs
+    y = y.reshape(b, di).to(x.dtype)
+    y = y * F.silu(z.float()).to(x.dtype)
+    out = torch.matmul(y, p["out_proj"])[:, None]
+    idx = torch.arange(b, device=x.device) if rows is None else rows
+    for old, new in ((cx, new_cx), (cB, new_cB), (cC, new_cC),
+                     (state, new_state)):
+        old[idx] = new[idx].to(old.dtype)
+    return out, cache

@@ -1,18 +1,22 @@
-"""Model assembly for attention stacks: init, prefill, decode.
+"""Model assembly: init, prefill, decode.
 
 The parameter and cache trees keep the JAX package's layout so the two
 can be compared like with like: the repeated unit's leaves are stacked
 ``[reps, ...]`` under ``layers`` (keys ``b0``, ``b1``, ... per block of
-the pattern), suffix blocks are a list, and a cache is
-``{"unit": {"b0": (k, v)}, "suffix": [...]}`` with k/v
-``[reps, batch, KV, max_seq, hd]`` in bf16.  Where JAX scans over the
-stacked unit, the port loops over its leading axis.
+the pattern), suffix blocks are a list, zamba2's shared attention body
+is one (unstacked) ``shared_body``, and a cache is
+``{"unit": {"b0": leaves}, "suffix": [...]}`` with leaves
+``[reps, batch, ...]``: attention K/V ``[.., KV, max_seq, hd]`` in bf16,
+a Mamba block's conv tails ``[.., d_conv - 1, width]`` in bf16 and its
+SSD state ``[.., nh, hd, ds]`` in f32.  Where JAX scans over the stacked
+unit, the port loops over its leading axis.
 
-Stacks of ``attn`` and ``local_attn`` (sliding-window) blocks run here,
-each with a dense gated MLP or a token-choice MoE FFN; a local block's
-decode cache is an O(window) ring, as in the JAX package.  Any other
-architecture raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+Stacks of ``attn`` and ``local_attn`` (sliding-window) blocks, each with
+a dense gated MLP or a token-choice MoE FFN, of ``mamba`` (Mamba-2)
+blocks and of ``shared_attn`` positions (zamba2's adapters around the one
+shared attention body) run here; a local block's decode cache is an
+O(window) ring, as in the JAX package.  Any other architecture raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -36,22 +40,26 @@ from .layers import (
 PyTree = Any
 
 
+#: the block types the port runs
+SUPPORTED_BLOCKS = ("attn", "local_attn", "mamba", "shared_attn")
+
+
 def _require_supported(cfg: ArchConfig) -> None:
     """The port runs GQA attention stacks, full and sliding-window, with
-    dense or MoE FFNs (ROADMAP Queue 1 item 10 ports the rest of the
-    zoo)."""
+    dense or MoE FFNs, and Mamba-2 stacks with or without zamba2's shared
+    attention (ROADMAP Queue 1 item 10 ports the rest of the zoo)."""
     stack = list(cfg.block_pattern) + list(cfg.suffix_blocks)
     if (
         cfg.mla is not None
-        or cfg.ssm is not None
         or cfg.enc_layers
         or cfg.frontend not in (None, "none")
         or not stack
-        or any(bt not in ("attn", "local_attn") for bt in stack)
+        or any(bt not in SUPPORTED_BLOCKS for bt in stack)
+        or ("mamba" in stack) != (cfg.ssm is not None)
     ):
         raise NotImplementedError(
-            f"{cfg.name}: only stacks of 'attn' and 'local_attn' blocks "
-            "(dense or MoE FFN) are ported; MLA, Mamba, shared-attention, "
+            f"{cfg.name}: only stacks of 'attn', 'local_attn', 'mamba' "
+            "and 'shared_attn' blocks (dense or MoE FFN) are ported; MLA, "
             "encoder-decoder and vision stacks wait for ROADMAP Queue 1 "
             "item 10"
         )
@@ -87,12 +95,20 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 
 # -------------------------------------------------------------------- init
-def _init_block(gen, cfg: ArchConfig, dtype, device) -> dict:
-    p = {
-        "ln1": torch.zeros(cfg.d_model, dtype=dtype, device=device),
-        "attn": blocks.init_attention(gen, cfg, dtype, device),
-        "ln2": torch.zeros(cfg.d_model, dtype=dtype, device=device),
-    }
+def _init_block(gen, cfg: ArchConfig, btype: str, dtype, device) -> dict:
+    p = {"ln1": torch.zeros(cfg.d_model, dtype=dtype, device=device)}
+    if btype == "mamba":
+        p["mamba"] = blocks.init_mamba(gen, cfg, dtype, device)
+        return p
+    if btype == "shared_attn":
+        # adapters only; the shared body lives once at the model level
+        p["in_adapter"] = dense_init(gen, cfg.d_model, cfg.d_model, dtype,
+                                     device)
+        p["out_adapter"] = dense_init(gen, cfg.d_model, cfg.d_model, dtype,
+                                      device)
+        return p
+    p["attn"] = blocks.init_attention(gen, cfg, dtype, device)
+    p["ln2"] = torch.zeros(cfg.d_model, dtype=dtype, device=device)
     if cfg.moe is None:
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
         return p
@@ -103,6 +119,16 @@ def _init_block(gen, cfg: ArchConfig, dtype, device) -> dict:
             cfg.moe.num_shared_experts * cfg.moe.d_ff_shared, dtype, device,
         )
     return p
+
+
+def _init_shared_body(gen, cfg: ArchConfig, dtype, device) -> dict:
+    """zamba2's shared transformer body (attention + MLP), one copy."""
+    return {
+        "ln1": torch.zeros(cfg.d_model, dtype=dtype, device=device),
+        "attn": blocks.init_attention(gen, cfg, dtype, device),
+        "ln2": torch.zeros(cfg.d_model, dtype=dtype, device=device),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
+    }
 
 
 def _stack(trees: List[PyTree]) -> PyTree:
@@ -132,18 +158,22 @@ def init_model(
         "embed": {"tokens": embed_init(gen, cfg.vocab, cfg.d_model, dtype, dev)},
         "layers": _stack([
             {
-                f"b{i}": _init_block(gen, cfg, dtype, dev)
-                for i in range(len(cfg.block_pattern))
+                f"b{i}": _init_block(gen, cfg, bt, dtype, dev)
+                for i, bt in enumerate(cfg.block_pattern)
             }
             for _ in range(reps)
         ]),
-        "suffix": [_init_block(gen, cfg, dtype, dev) for _ in cfg.suffix_blocks],
+        "suffix": [
+            _init_block(gen, cfg, bt, dtype, dev) for bt in cfg.suffix_blocks
+        ],
         "final_ln": torch.zeros(cfg.d_model, dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(
             gen, cfg.d_model, cfg.vocab, dtype, dev
         )
+    if "shared_attn" in tuple(cfg.block_pattern) + tuple(cfg.suffix_blocks):
+        params["shared_body"] = _init_shared_body(gen, cfg, dtype, dev)
     return params
 
 
@@ -154,25 +184,40 @@ def init_cache(
     *,
     device: Union[str, torch.device] = "cuda",
 ) -> PyTree:
-    """Zeroed bf16 decode caches: {unit: {b<i>: (k, v)}, suffix: [...]}."""
+    """Zeroed decode caches: {unit: {b<i>: leaves}, suffix: [...]} —
+    attention (k, v) in bf16; a Mamba block's three bf16 conv tails and
+    its f32 SSD state."""
     _require_supported(cfg)
     dev = resolve_device(device)
     reps = cfg.resolved_pattern_repeats
 
-    def kv(btype, lead=()):
+    def block(btype, lead=()):
+        bf16 = dict(dtype=torch.bfloat16, device=dev)
+        if btype == "mamba":
+            ssm = cfg.ssm
+            tail = ssm.d_conv - 1
+            return (
+                torch.zeros(lead + (batch, tail, ssm.d_inner(cfg.d_model)),
+                            **bf16),
+                torch.zeros(lead + (batch, tail, ssm.d_state), **bf16),
+                torch.zeros(lead + (batch, tail, ssm.d_state), **bf16),
+                torch.zeros(
+                    lead + (batch, ssm.n_heads(cfg.d_model), ssm.head_dim,
+                            ssm.d_state),
+                    dtype=torch.float32, device=dev,
+                ),
+            )
         # sliding-window layers keep an O(window) RING buffer, not O(seq)
         seq = _cache_len(cfg, btype, max_seq)
         shape = lead + (batch, cfg.n_kv_heads, seq, cfg.head_dim)
-        return tuple(
-            torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-            for _ in range(2)
-        )
+        return tuple(torch.zeros(shape, **bf16) for _ in range(2))
 
     return {
         "unit": {
-            f"b{i}": kv(bt, (reps,)) for i, bt in enumerate(cfg.block_pattern)
+            f"b{i}": block(bt, (reps,))
+            for i, bt in enumerate(cfg.block_pattern)
         },
-        "suffix": [kv(bt) for bt in cfg.suffix_blocks],
+        "suffix": [block(bt) for bt in cfg.suffix_blocks],
     }
 
 
@@ -198,8 +243,7 @@ def _layers(cfg: ArchConfig, params, caches=None) -> Iterator[Tuple]:
             p = _index(params["layers"][key], r)
             c = None
             if caches is not None:
-                k, v = caches["unit"][key]
-                c = (k[r], v[r])
+                c = tuple(leaf[r] for leaf in caches["unit"][key])
             yield btype, p, c
     for j, (btype, p) in enumerate(zip(cfg.suffix_blocks, params["suffix"])):
         yield btype, p, (caches["suffix"][j] if caches is not None else None)
@@ -254,12 +298,23 @@ def prefill(
     kvs = []
     for btype, p, _ in _layers(cfg, params):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if btype == "mamba":
+            # conv tails and state have no seq axis: no padding
+            y, cache = blocks.mamba_forward(p["mamba"], cfg, h,
+                                            return_cache=True)
+            x = x + y
+            kvs.append(cache)
+            continue
+        if btype == "shared_attn":
+            x, (k, v) = _shared_attn_full(p, cfg, params["shared_body"], x, h)
+        else:
+            window = _window(cfg, btype)
+            a, (k, v) = blocks.attention_forward(
+                p["attn"], cfg, h, window=window, return_cache=True
+            )
+            x = x + a
+            x = x + _ffn(p, cfg, x)
         window = _window(cfg, btype)
-        a, (k, v) = blocks.attention_forward(
-            p["attn"], cfg, h, window=window, return_cache=True
-        )
-        x = x + a
-        x = x + _ffn(p, cfg, x)
         seq = _cache_len(cfg, btype, max_seq)
         if window is not None and s > seq:
             k, v = _to_ring(k, window), _to_ring(v, window)
@@ -269,6 +324,21 @@ def prefill(
         kvs.append((k, v))
     logits = _unembed(cfg, params, x[:, -1:])
     return logits, _caches_from_layers(cfg, kvs)
+
+
+def _shared_attn_full(p: dict, cfg: ArchConfig, body: dict,
+                      x: torch.Tensor, h: torch.Tensor):
+    """zamba2's shared attention position over a sequence: the in
+    adapter, the shared body (attention through K3 on the card, then its
+    MLP), the out adapter added to the residual ``x``; returns (x, the
+    body's K/V)."""
+    inner = torch.matmul(h, p["in_adapter"])
+    g = rms_norm(inner, body["ln1"], cfg.norm_eps)
+    a, kv = blocks.attention_forward(body["attn"], cfg, g, return_cache=True)
+    inner = inner + a
+    inner = inner + apply_mlp(body["mlp"],
+                              rms_norm(inner, body["ln2"], cfg.norm_eps))
+    return x + torch.matmul(inner, p["out_adapter"]), kv
 
 
 def _to_ring(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -285,9 +355,9 @@ def _caches_from_layers(cfg: ArchConfig, kvs: List[Tuple]) -> PyTree:
     unit = {}
     for i in range(n_pat):
         per_rep = [kvs[r * n_pat + i] for r in range(reps)]
-        unit[f"b{i}"] = (
-            torch.stack([k for k, _ in per_rep]),
-            torch.stack([v for _, v in per_rep]),
+        unit[f"b{i}"] = tuple(
+            torch.stack([c[j] for c in per_rep])
+            for j in range(len(per_rep[0]))
         )
     return {"unit": unit, "suffix": kvs[reps * n_pat:]}
 
@@ -304,7 +374,8 @@ def decode_step(
     """One decode step; returns (logits [B, 1, V], caches).
 
     The caches are updated in place (and returned): the new token's K/V
-    land at ``pos`` of each row, or only of ``rows`` when given.  An MoE
+    land at ``pos`` of each row, and a Mamba block's conv tails and state
+    advance, in every row or only in ``rows`` when given.  An MoE
     FFN dispatches each row as its own capacity group, as the JAX engine's
     per-slot vmapped step does (this is the engine's dense and
     continuation step), so rows never take capacity from one another;
@@ -315,6 +386,22 @@ def decode_step(
     x = _embed(params, tokens)
     for btype, p, cache in _layers(cfg, params, caches):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if btype == "mamba":
+            y, _ = blocks.mamba_decode(p["mamba"], cfg, h, cache, pos,
+                                       rows=rows)
+            x = x + y
+            continue
+        if btype == "shared_attn":
+            body = params["shared_body"]
+            inner = torch.matmul(h, p["in_adapter"])
+            g = rms_norm(inner, body["ln1"], cfg.norm_eps)
+            a, _ = blocks.attention_decode(body["attn"], cfg, g, cache, pos,
+                                           rows=rows)
+            inner = inner + a
+            inner = inner + apply_mlp(
+                body["mlp"], rms_norm(inner, body["ln2"], cfg.norm_eps))
+            x = x + torch.matmul(inner, p["out_adapter"])
+            continue
         a, _ = blocks.attention_decode(
             p["attn"], cfg, h, cache, pos, window=_window(cfg, btype),
             rows=rows,

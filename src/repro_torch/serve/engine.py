@@ -1553,12 +1553,25 @@ class ServingEngine:
     def _install_prefill(self, req: Request, tokens: List[int]) -> Any:
         """Monolithic prefill of ``tokens`` into the request's slot; returns
         the last-position logits."""
+        ssm = self.cfg.ssm
+        if ssm is not None and 1 < len(tokens) < ssm.d_conv - 1:
+            # a Mamba block's conv tails would be shorter than the slot's
+            # and longer than one row: the JAX engine's slot write fails
+            # on the shapes here too (one token broadcasts in both)
+            raise ValueError(
+                f"{self.cfg.name}: a prefill of {len(tokens)} tokens gives "
+                f"Mamba conv tails shorter than d_conv - 1 = "
+                f"{ssm.d_conv - 1}; the JAX engine cannot install it either"
+            )
         (arr,) = self._to_device(np.asarray([tokens], np.int32))
         logits, caches = prefill(
             self.cfg, self.params, arr, max_seq=self.ecfg.max_seq
         )
         # install the request's cache into its slot (unit leaves carry the
-        # repeat dim first → slot axis is 1; suffix leaves → axis 0)
+        # repeat dim first → slot axis is 1; suffix leaves → axis 0); a
+        # one-token prompt's single conv-tail row fills all d_conv - 1
+        # rows of the slot's tail, as the JAX engine's broadcasting
+        # ``.at[].set`` does
         slot = req.slot
         for s, o in zip(_leaves(self._caches["unit"]), _leaves(caches["unit"])):
             s[:, slot].copy_(o[:, 0])

@@ -2,7 +2,12 @@
 the engine's paths through them.
 
 Tolerances: in f32 the kernels and the plain versions differ only in the
-order of f32 sums (1e-5).  In bf16 both compute in f32 from the same
+order of f32 sums (1e-5); the SSD scan (K6) within ``SSD_RTOL`` = 1e-3
+of its largest |output|, the JAX package's own tolerance for its scan
+kernel against the sequential recurrence (both sum the running decay in
+one order; their contractions' f32 sums differ in order, and
+exp(seg_i - seg_j) of two decay sums of order 10^3 would amplify any
+difference in those).  In bf16 both compute in f32 from the same
 bf16 inputs and round the output once, so they differ by at most one
 bf16 ulp (8 significant bits) at the largest |output| — the limit
 ``chip_smoke.py`` states too.
@@ -24,6 +29,7 @@ from repro_torch.kernels import ops, paged_decode, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.grouped_matmul import grouped_matmul  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import init_model  # noqa: E402
 from repro_torch.models.transformer import _quantize_pool_int8  # noqa: E402
 from repro_torch.sched import MursConfig, MursPolicy  # noqa: E402
@@ -342,3 +348,119 @@ def test_granite_moe_engine_runs_the_expert_kernel(dev, paged):
                  + paged_decode.paged_decode_attention.launches)
     assert attention > 0
     assert grouped_matmul.launches == 3 * attention
+
+
+SSD_RTOL = 1e-3  # of max |plain|: see the module docstring
+
+#: (B, S, nh, hd, ds, chunk): chip_smoke.py's kernel phase — mamba2
+#: prefills of 32, 65, 256, 768 and 1024 tokens, zamba2's of 1024, a
+#: batch of 3, and the ragged smoke shape
+SSD_SHAPES = [
+    (1, 32, 80, 64, 128, 256), (1, 65, 80, 64, 128, 256),
+    (1, 256, 80, 64, 128, 256), (1, 768, 80, 64, 128, 256),
+    (1, 1024, 80, 64, 128, 256), (1, 1024, 64, 64, 64, 256),
+    (3, 300, 80, 64, 128, 256), (1, 45, 3, 16, 8, 32),
+]
+
+
+def _ssd_inputs(dev, b, s, nh, hd, ds, seed=0):
+    """Model-like f32 inputs: SiLU outputs for x, B and C, dt a softplus,
+    A = -linspace(1, 16, nh) as the model's A_log gives."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def silu(*shape):
+        return torch.nn.functional.silu(
+            torch.randn(*shape, generator=g, device=dev))
+
+    x = silu(b, s, nh, hd)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, nh, generator=g, device=dev))
+    A = -torch.linspace(1.0, 16.0, nh, device=dev)
+    return x, dt, A, silu(b, s, ds), silu(b, s, ds)
+
+
+@pytest.mark.parametrize("b,s,nh,hd,ds,chunk", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain(dev, b, s, nh, hd, ds, chunk):
+    args = _ssd_inputs(dev, b, s, nh, hd, ds, seed=s + nh)
+    out = ssd_scan(*args, chunk)
+    plain = ref.ssd_scan_ref(*args, chunk)
+    torch.cuda.synchronize()
+    assert out.shape == (b, s, nh, hd) and torch.isfinite(out).all()
+    atol = SSD_RTOL * plain.abs().max().item()
+    torch.testing.assert_close(out, plain, atol=atol, rtol=0)
+
+
+def test_ssd_scan_rows_do_not_see_what_follows(dev):
+    """A ragged scan equals the head of a longer one: the kernel masks
+    the missing positions of its last chunk itself."""
+    args = _ssd_inputs(dev, 1, 600, 4, 64, 128)
+    full = ssd_scan(*args, 256)
+    head = [a[:, :333].contiguous() if a.dim() > 1 else a for a in args]
+    part = ssd_scan(*head, 256)
+    atol = SSD_RTOL * full.abs().max().item()
+    torch.testing.assert_close(part, full[:, :333], atol=atol, rtol=0)
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_cannot_take(dev):
+    x, dt, A, Bm, C = _ssd_inputs(dev, 1, 40, 2, 16, 8)
+    with pytest.raises(TypeError):
+        ssd_scan(x.bfloat16(), dt, A, Bm, C, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm,
+                 C, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(x.cpu(), dt, A, Bm, C, 32)
+    with pytest.raises(ValueError, match="match"):
+        ssd_scan(x, dt[:, :-1].contiguous(), A, Bm, C, 32)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan(x, dt, A, Bm, C, 512)
+    wide = torch.zeros(1, 40, 2, 128, device=dev)
+    with pytest.raises(ValueError, match="hd"):
+        ssd_scan(wide, dt, A, Bm, C, 32)
+
+
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_ssm_engine_runs_the_ssd_kernel(dev, name):
+    """mamba2 and zamba2 (smoke) serve on the card: K6 once per Mamba
+    layer of every ``prefill``; zamba2's shared attention through K3 and
+    K4; the paged kernels never."""
+    from repro_torch.serve import engine as engine_module
+
+    cfg = ARCHS[name].smoke()
+    calls = {"prefill": 0, "decode_step": 0}
+    originals = {k: getattr(engine_module, k) for k in calls}
+
+    def counting(name):
+        def fn(*args, **kwargs):
+            calls[name] += 1
+            return originals[name](*args, **kwargs)
+        return fn
+
+    eng = ServingEngine(
+        cfg, init_model(cfg, 0, device=dev),
+        EngineConfig(n_slots=3, max_seq=96, hbm_capacity_bytes=1e9,
+                     paged_decode=True,
+                     policy=MursPolicy(MursConfig.for_serving(period=1.0)),
+                     device=str(dev)),
+    )
+    for i in range(3):
+        eng.submit(Request(f"A{i}", "A", list(range(10, 50 + 20 * i)), 8))
+    ops.reset_launch_counts()
+    try:
+        for k in calls:
+            setattr(engine_module, k, counting(k))
+        eng.run(max_ticks=600)
+    finally:
+        for k, fn in originals.items():
+            setattr(engine_module, k, fn)
+    assert len(eng.completed) == 3 and not eng.failed
+    n_mamba = sum(bt == "mamba" for bt in
+                  list(cfg.block_pattern) * cfg.resolved_pattern_repeats
+                  + list(cfg.suffix_blocks))
+    n_shared = cfg.n_layers - n_mamba
+    assert calls["prefill"] > 0
+    assert ssd_scan.launches == n_mamba * calls["prefill"]
+    assert flash_attention.launches == n_shared * calls["prefill"]
+    assert decode_attention.launches == n_shared * calls["decode_step"]
+    assert paged_decode.paged_decode_attention.launches == 0
+    assert eng.paged_decode_ticks == 0

@@ -1,7 +1,7 @@
 """The port stands alone: no JAX and no module of the JAX package.
 
 In a fresh interpreter with ``jax`` blocked, every ``repro_torch`` module
-is imported and a two-request engine runs on the CPU — some imports
+is imported and two small engines (internlm2 and zamba2) run on the CPU — some imports
 happen lazily at call time, so the run is part of the check — and then no
 ``repro`` module may be loaded.
 """
@@ -36,8 +36,11 @@ def test_every_module_is_listed():
         "repro_torch.kernels.flash_attention",
         "repro_torch.kernels.decode_attention",
         "repro_torch.kernels.grouped_matmul",
+        "repro_torch.kernels.ssd_scan",
         "repro_torch.configs.gemma3_1b",
         "repro_torch.configs.granite_moe_3b_a800m",
+        "repro_torch.configs.mamba2_2_7b",
+        "repro_torch.configs.zamba2_1_2b",
         "repro_torch.models.transformer",
         "repro_torch.serve.engine",
         "repro_torch.launch.serve",
@@ -70,6 +73,15 @@ def test_port_imports_and_serves_without_jax_or_repro():
         eng.submit(Request("r1", "B", list(range(20, 23)), 3))
         rep = eng.run(max_ticks=50)
         assert rep.completed == 2 and eng.paged_decode_ticks > 0
+        # the hybrid SSM stack: Mamba-2 blocks and zamba2's shared attention
+        cfg = ARCHS["zamba2-1.2b"].smoke()
+        eng = ServingEngine(
+            cfg, init_model(cfg, 0, device="cpu"),
+            EngineConfig(n_slots=2, max_seq=40, hbm_capacity_bytes=1e9,
+                         device="cpu"),
+        )
+        eng.submit(Request("z0", "A", list(range(5, 40)), 3))
+        assert eng.run(max_ticks=50).completed == 1
         bad = sorted(m for m in sys.modules
                      if m == "repro" or m.startswith("repro.")
                      or m == "jax" and sys.modules[m] is not None)

@@ -30,7 +30,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import ARCHS  # noqa: E402
 from repro import models as jm  # noqa: E402
 from repro_torch import models as tm  # noqa: E402
-from repro_torch.configs import ARCHS as TARCHS, SSMConfig  # noqa: E402
+from repro_torch.configs import ARCHS as TARCHS  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
 LOGIT_ATOL = 0.1
@@ -195,14 +195,14 @@ def test_quantize_pool_int8_matches():
 
 
 def test_unsupported_arch_raises():
-    """A block the port has not ported yet (Mamba-2 here) raises, naming
-    the ROADMAP item that ports it."""
-    cfg = dataclasses.replace(
-        TARCHS["internlm2-1.8b"].smoke(), block_pattern=("mamba",),
-        ssm=SSMConfig(),
-    )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_model(cfg, 0, device="cpu")
+    """A stack the port has not ported yet (an encoder-decoder here, and
+    Mamba-2 blocks without their SSM dims) raises, naming the ROADMAP
+    item that ports it."""
+    base = TARCHS["internlm2-1.8b"].smoke()
+    for cfg in (dataclasses.replace(base, enc_layers=2),
+                dataclasses.replace(base, block_pattern=("mamba",))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tm.init_model(cfg, 0, device="cpu")
 
 
 def test_cuda_request_without_card_raises():
