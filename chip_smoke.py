@@ -16,17 +16,19 @@ Phases, each printing one JSON line (or one per kernel or run):
    at the paged serving path's shapes (hd 128, page 16, 8 requests × 16
    heads, a table covering 1024 tokens) and a smoke shape; K3 (flash
    attention) at internlm2's first prompt chunk and full prompt, a gemma3
-   local layer and a smoke shape; K4 (decode attention) at the
-   chunked-prefill continuation, a dense batch, a gemma3 global layer and
-   a windowed batch; K5 (grouped matmul) at the capacities the MoE code
+   local layer, a zamba2 prompt (hd 64) and a smoke shape; K4 (decode
+   attention) at the chunked-prefill continuation, a dense batch, a
+   gemma3 global layer, a windowed batch and granite-moe's dense batch
+   (hd 64); K5 (grouped matmul) at the capacities the MoE code
    gives granite-moe's serving traffic (paged and dense decode, a prefill
    of each prompt length served, a 400- and a 1024-token prefill) and a
    ragged smoke shape; K6 (the Mamba-2 SSD scan, f32) at mamba2 prefills
    of 32, 65, 256, 768 and 1024 tokens, a zamba2 prefill of 1024, a batch
    of 3 and a ragged smoke shape.  Kernel, plain-version and library
    (``scaled_dot_product_attention``, ``torch.bmm``; none computes K6)
-   times (cold L2), and the bound from the bytes and operations each
-   call needs;
+   times (cold L2), the bound from the bytes and operations each call
+   needs, the achieved TFLOP/s and the share of the bound reached; for
+   K3 and K4 also the host time of one call;
 4. ``serve`` — internlm2-1.8b at full width (24 layers, d 2048, hd 128,
    vocab 92,544; random bf16 weights from a seed) served by the port's
    MURS engine over a paged KV pool sized to force suspensions, first
@@ -151,6 +153,13 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def with_rates(r):
+    """A ``kernel`` line with its achieved rate (``tflops``, flops / ms)
+    and its share of the bound (``of_bound``, bound_ms / ms)."""
+    return {**r, "tflops": r["flops"] / (r["ms"] * 1e9),
+            "of_bound": r["bound_ms"] / r["ms"]}
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -178,6 +187,23 @@ def time_ms(torch, fn, flush, iters=30):
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_ms(torch, fn, batches=10, calls=20):
+    """Host time of one call of ``fn``: the wall time of ``calls`` calls
+    issued back to back, the card not waited for, over ``calls``; the
+    least of ``batches`` such batches, since other work on a shared host
+    only adds time.  On a host-bound serve path this, not the device
+    time, is what a call costs."""
+    best = math.inf
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best * 1e3 / calls
 
 
 # ----------------------------------------------------------------- kernels
@@ -310,29 +336,34 @@ def kernel_phase(torch, F, pd, ref, flush):
                     "flops": 4 * 128 * tokens,
                 }
         results[name]["max_abs_err"] = max_err
-        emit({"phase": "kernel", "name": name, **results[name],
-              "tolerance": {"f32": F32_ATOL, "bf16_path": max_tol}})
+        emit(with_rates({"phase": "kernel", "name": name, **results[name],
+                         "tolerance": {"f32": F32_ATOL,
+                                       "bf16_path": max_tol}}))
     return results
 
 
 # (name, B, H, KV, Sq, Sk, hd, causal, window, q_offset): K3 at internlm2's
 # first prompt chunk (the serve run's prefills are 32-65 tokens) and full
-# prompt, a gemma3 local layer, and a smoke shape whose last two rows keep
-# no key (positions 40, 41 against 37 keys, window 4)
+# prompt, a gemma3 local layer, a zamba2 shared-attention prompt (hd 64,
+# the width granite-moe's layers launch too), and a smoke shape whose last
+# two rows keep no key (positions 40, 41 against 37 keys, window 4)
 FLASH_CASES = [
     ("internlm2_chunk", 1, 16, 8, 64, 64, 128, True, 0, 0),
     ("internlm2_prompt", 1, 16, 8, 1024, 1024, 128, True, 0, 0),
     ("gemma3_local", 1, 4, 1, 1024, 1024, 256, True, 512, 0),
+    ("zamba2_prompt", 1, 32, 32, 1024, 1024, 64, True, 0, 0),
     ("smoke", 1, 4, 2, 37, 37, 16, True, 4, 5),
 ]
 # (name, B, H, KV, S, hd, window, positions): K4 at the chunked-prefill
 # continuation, a dense batch of 8 slots, a gemma3 global layer, the batch
-# with a window of 512; None draws the positions in [0, S)
+# with a window of 512, granite-moe's dense batch (hd 64, 3 q-heads a kv
+# head); None draws the positions in [0, S)
 DECODE_CASES = [
     ("continuation", 1, 16, 8, 1024, 128, 0, [199]),
     ("dense_batch", 8, 16, 8, 1024, 128, 0, None),
     ("gemma3_global", 8, 4, 1, 1024, 256, 0, None),
     ("window_batch", 8, 16, 8, 1024, 128, 512, None),
+    ("granite_dense", 8, 24, 8, 1024, 64, 0, None),
 ]
 #: the case whose numbers go into the kernels line: the shape the
 #: internlm2 serve run gives each kernel most often
@@ -419,16 +450,25 @@ def attention_kernel_phase(torch, F, ref, flush):
                 "max_abs_err": err, "tolerance_bf16": atol,
                 "ms": time_ms(torch, lambda: flash_attention(q, k, v, **kw),
                               flush),
+                "host_ms": host_ms(
+                    torch, lambda: flash_attention(q, k, v, **kw)),
                 "plain_ms": time_ms(
                     torch, lambda: ref.flash_attention_ref(q, k, v, **kw),
                     flush),
                 "library_ms": time_ms(
                     torch, lambda: F.scaled_dot_product_attention(
                         q, kr, vr, attn_mask=mask), flush),
+                # the same function without a mask tensor, where SDPA's
+                # causal flag says it all (a square prompt from position 0)
+                "library_causal_ms": time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, kr, vr, is_causal=True), flush)
+                if causal and not window and not q_offset and sq == sk
+                else None,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "bytes": n_bytes, "flops": flops,
             }
-            emit(r)
+            emit(with_rates(r))
             results[("flash_attention", name)] = r
     for name, b, h, kv, s, hd, window, positions in DECODE_CASES:
         dtype = torch.bfloat16
@@ -471,6 +511,8 @@ def attention_kernel_phase(torch, F, ref, flush):
             "max_abs_err": err, "tolerance_bf16": atol,
             "ms": time_ms(torch, lambda: decode_attention(
                 q, k, v, pos, window=window), flush),
+            "host_ms": host_ms(torch, lambda: decode_attention(
+                q, k, v, pos, window=window)),
             "plain_ms": time_ms(torch, lambda: ref.decode_attention_ref(
                 q, k, v, pos, window=window), flush),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -478,7 +520,7 @@ def attention_kernel_phase(torch, F, ref, flush):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": n_bytes, "flops": flops,
         }
-        emit(r)
+        emit(with_rates(r))
         results[("decode_attention", name)] = r
     return {kernel: {**results[(kernel, case)], "max_abs_err": max(
                 r["max_abs_err"] for (kn, _), r in results.items()
@@ -568,7 +610,7 @@ def gmm_kernel_phase(torch, ref, flush, cases):
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "bytes": n_bytes, "flops": flops,
             }
-            emit(r)
+            emit(with_rates(r))
             if dtype == torch.bfloat16:
                 max_err = max(max_err, err)
                 results[name] = r
@@ -1331,7 +1373,7 @@ def ssd_kernel_phase(torch, ref, flush, cases):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": n_bytes, "flops": flops,
         }
-        emit(r)
+        emit(with_rates(r))
         results[name] = r
     return {"ssd_scan": {**results[SSD_LINE_CASE],
                          "max_abs_err": max_err}}, checked

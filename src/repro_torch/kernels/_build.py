@@ -47,8 +47,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                    *[_L] * 12, _I, _I, _I, _F, _I, _P],
     },
     "decode_attention": {
-        "launch_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    *[_L] * 8, _I, _F, _I, _P],
+        "launch_decode_attention": [_P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, *[_L] * 8,
+                                    _I, _I, _I, _I, _F, _I, _P],
     },
     "grouped_matmul": {
         "launch_grouped_matmul": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],

@@ -23,8 +23,9 @@
 // cores: gmm_mma_kernel, one CTA of 8 warps per (expert, 64 output
 // columns), all C rows of the expert in one block of up to 256 rows, D
 // swept in 64-deep chunks through a 4-stage cp.async ring in shared memory,
-// mma.sync m16n8k16 with f32 accumulators.  Each w element is loaded once
-// per launch (C > 256 loops over row blocks and reloads w from L2).
+// mma.sync m16n8k16 with f32 accumulators (the helpers of mma.cuh).  Each
+// w element is loaded once per launch (C > 256 loops over row blocks and
+// reloads w from L2).
 //
 // f32, or bf16 with a ragged D, F or x stride, takes gmm_simple_kernel on
 // the CUDA cores: one thread per (expert, output column, block of 4 rows),
@@ -36,8 +37,15 @@
 // the prefill ones, and skipping the capacity rows that hold no token.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using repro_torch::cp_async16;
+using repro_torch::cp_async_commit;
+using repro_torch::cp_async_wait_group;
+using repro_torch::mma_bf16;
+using repro_torch::pack_bf16;
 
 constexpr int kThreads = 256;
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block can use
@@ -59,16 +67,6 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
-}
-
-// 16-byte global->shared copy; with ``full`` false it writes 16 zero bytes
-// and reads nothing
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = full ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(n));
 }
 
 // ------------------------------------------------------------ CUDA cores
@@ -147,30 +145,6 @@ constexpr int kStages = 4;
 constexpr int kPad = 8;  // bf16 elements of padding per smem row
 constexpr int kRow = kBK + kPad;  // x chunk row (k contiguous)
 constexpr int kWRow = kBN + kPad;  // w chunk row (n contiguous)
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int MT>
 __global__ void __launch_bounds__(kThreads)

@@ -1,22 +1,87 @@
 """Wrapper of the CUDA decode-attention kernel K4 (``csrc/decode_attention.cu``).
 
 It checks device, dtype, shape, strides and alignment and raises on
-anything the kernel does not take, allocates the output with
-``torch.empty``, launches on the current stream without synchronising,
-raises if the launch reports an error, and adds one to ``launches``.  It
-takes CUDA tensors only: the plain version is
+anything the kernel does not take, plans the split of the key axis
+(:func:`split_plan`, once a shape), allocates the output with
+``torch.empty`` and takes the splits' f32 workspace from
+:func:`workspace`, launches on the current stream without
+synchronising, raises if the launch reports an error, and adds one to
+``launches`` (one call, however many splits).  It takes CUDA tensors
+only: the plain version is
 :func:`repro_torch.kernels.ref.decode_attention_ref`, and
 :mod:`repro_torch.kernels.ops` chooses between the two.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Dict, Tuple
 
 import torch
 
 from . import _build
 from ._build import DTYPE_CODE, raise_on_launch_error, row_strides
+
+#: CTAs the split aims for on each SM of the card
+CTAS_PER_SM = 2
+#: the shortest split worth a CTA of its own, in keys
+MIN_SPLIT = 64
+
+
+def head_group(h: int, kv: int) -> int:
+    """GT, the q-heads of one kv head that a CTA serves together (they
+    share every K and V load): the largest of 4, 2, 1 that divides
+    H / KV."""
+    g = h // kv
+    return 4 if g % 4 == 0 else 2 if g % 2 == 0 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_plan(b: int, h: int, kv: int, s: int,
+               sms: int) -> Tuple[int, int]:
+    """(n_splits, split_len) of the key axis [0, S) on a card of ``sms``
+    SMs: enough splits that B · (H / GT) · n_splits reaches
+    ``CTAS_PER_SM`` · sms, none shorter than ``MIN_SPLIT`` keys, and
+    split_len · n_splits ≥ S with no empty last split.  From the shapes
+    alone: the positions stay on the device."""
+    ctas = b * (h // head_group(h, kv))
+    n = min(-(-CTAS_PER_SM * sms // ctas), s // MIN_SPLIT)
+    if n <= 1:
+        return 1, s
+    length = -(-s // n)
+    return -(-s // length), length
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(b: int, h: int, kv: int, s: int,
+                 index: int) -> Tuple[int, int, int]:
+    """(GT, n_splits, split_len) of a shape on CUDA device ``index``."""
+    return (head_group(h, kv), *split_plan(b, h, kv, s, sm_count(index)))
+
+
+#: one split workspace per (device, stream), reused by every call on that
+#: stream: the stream orders the calls, so none overwrites another's
+#: splits before its merge has read them
+_workspaces: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def workspace(device: torch.device, stream: int,
+              numel: int) -> torch.Tensor:
+    """At least ``numel`` f32 of ``stream``'s split workspace on
+    ``device``, grown with ``torch.empty`` when a call needs more (the
+    caching allocator hands the old block only to later work on the same
+    stream)."""
+    ws = _workspaces.get((device, stream))
+    if ws is None or ws.numel() < numel:
+        ws = torch.empty(numel, dtype=torch.float32, device=device)
+        _workspaces[(device, stream)] = ws
+    return ws
 
 
 def decode_attention(
@@ -64,13 +129,19 @@ def decode_attention(
         raise ValueError("decode attention kernel: window must be >= 0")
     qs, ks, vs = (row_strides(t, "decode attention kernel") for t in (q, k, v))
     out = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
+    group_heads, n_splits, split_len = _launch_plan(b, h, kv, s,
+                                                    q.device.index)
     lib = _build.library("decode_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        # each split's acc [B, H, n_splits, hd], then its (m, l)
+        ws = (workspace(q.device, stream, b * h * n_splits * (hd + 2))
+              if n_splits > 1 else None)
         err = lib.launch_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), cur_pos.data_ptr(),
-            out.data_ptr(), b, h, kv, s, hd, *qs, *ks, *vs, window,
-            1.0 / math.sqrt(hd), DTYPE_CODE[q.dtype], stream,
+            out.data_ptr(), None if ws is None else ws.data_ptr(),
+            b, h, kv, s, hd, *qs, *ks, *vs, window, group_heads, n_splits,
+            split_len, 1.0 / math.sqrt(hd), DTYPE_CODE[q.dtype], stream,
         )
     raise_on_launch_error(err, "decode_attention")
     decode_attention.launches += 1

@@ -14,11 +14,21 @@ atol 1e-5: the sides differ only in the order of f32 sums.
 Shapes: the ``tests/test_kernels.py`` sweep (multiples of the Pallas
 blocks), grouped-query heads, ragged lengths, ``q_offset``, sliding
 windows, per-row decode positions, and a prefill row that keeps no key.
+
+Two tests check on the CPU the arithmetic the CUDA kernels reorder:
+K4's split of the key axis (its ``split_plan``, each split's softmax
+and the merge) against ``decode_attention_ref`` in f32 within 1e-5, and
+K3's weights rounded to bf16 before P.V (a plain tiled flash attention
+that rounds them as the tensor-core kernel does) against
+``flash_attention_ref`` within one bf16 ulp of the largest |output|, the
+tolerance ``chip_smoke.py`` holds the kernel to, at its K3 shapes.
 For that row the Pallas kernel and ``layers.chunked_attention`` return
 the mean of V over all keys and ``repro.kernels.ref.flash_attention_ref``
 returns 0 (ROADMAP Queue 3); the port follows the Pallas kernel.  The
 CUDA kernels themselves run only on the card: ``tests/test_torch_cuda.py``.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -274,3 +284,166 @@ def test_plain_versions_keep_q_dtype():
     out = ref.decode_attention_ref(q[:, :, 0], k, v,
                                    torch.tensor([3], dtype=torch.int32))
     assert out.dtype == torch.bfloat16 and out.shape == (1, 2, 16)
+
+
+def _split_merge_decode(q, k, v, cur_pos, window, n_splits, split_len):
+    """K4's arithmetic in plain torch: each split of the key axis keeps
+    (m, l, acc) of its kept keys (m = -inf, l = 0 where it keeps none),
+    and the splits merge in order; a row that keeps no key scores 0 on
+    every key (the mean of V)."""
+    b, h, hd = q.shape
+    kr = ref.repeat_kv(k, h // k.shape[1]).float()
+    vr = ref.repeat_kv(v, h // k.shape[1]).float()
+    s = kr.shape[2]
+    logits = torch.einsum("bhd,bhkd->bhk", q.float(), kr) / math.sqrt(hd)
+    k_pos = torch.arange(s)
+    cur = cur_pos.long()[:, None]
+    keep = k_pos[None, :] <= cur
+    if window:
+        keep &= k_pos[None, :] > cur - window
+    uniform = ~keep.any(dim=1)
+    keep[uniform] = True
+    logits = torch.where(uniform[:, None, None], 0.0, logits)
+    parts = []
+    for sp in range(n_splits):
+        cols = slice(sp * split_len, min(s, (sp + 1) * split_len))
+        x = torch.where(keep[:, None, cols], logits[..., cols], -math.inf)
+        m = x.amax(dim=-1)
+        p = torch.exp(x - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bhk,bhkd->bhd", p, vr[:, :, cols])))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_all = torch.zeros_like(m_all)
+    acc = torch.zeros(b, h, hd)
+    for m, l, a in parts:
+        w = torch.where(l > 0, torch.exp(m - m_all), 0.0)
+        l_all = l_all + l * w
+        acc = acc + a * w[..., None]
+    return acc / l_all[..., None]
+
+
+# (seed, B, H, KV, S, hd, window, positions): the chip_smoke.py K4 shapes
+# with positions at split edges, empty splits, windowed rows and rows
+# that keep no key (cur_pos -1)
+SPLIT_DECODE = [
+    (50, 1, 16, 8, 1024, 128, 0, [199]),
+    (51, 1, 16, 8, 1024, 128, 0, [63]),
+    (52, 1, 16, 8, 1024, 128, 0, [64]),
+    (53, 1, 16, 8, 1024, 128, 0, [-1]),
+    (54, 8, 4, 1, 1024, 256, 0, [0, 1023, 63, 64, 65, 511, 512, -1]),
+    (55, 8, 16, 8, 1024, 128, 512, [386, 935, 511, 779, 652, 545, -1, 0]),
+    (56, 8, 24, 8, 1024, 64, 0, [331, 910, 380, 469, 456, 30, 92, 875]),
+    (57, 3, 6, 2, 300, 64, 7, [-1, 150, 299]),
+]
+
+
+@pytest.mark.parametrize("sms", [132, 114])  # an H100 SXM's SMs, PCIe's
+@pytest.mark.parametrize("seed,b,h,kv,s,hd,window,positions", SPLIT_DECODE)
+def test_decode_split_merge_matches_ref(seed, b, h, kv, s, hd, window,
+                                        positions, sms):
+    n_splits, split_len = kdecode.split_plan(b, h, kv, s, sms)
+    assert n_splits * split_len >= s > (n_splits - 1) * split_len
+    assert split_len >= min(s, kdecode.MIN_SPLIT)
+    if s >= 2 * kdecode.MIN_SPLIT:
+        assert n_splits > 1
+    q, k, v = (torch.from_numpy(a) for a in _cache(seed, b, h, kv, s, hd))
+    pos = torch.tensor(positions, dtype=torch.int32)
+    out = _split_merge_decode(q, k, v, pos, window, n_splits, split_len)
+    gold = ref.decode_attention_ref(q, k, v, pos, window=window)
+    np.testing.assert_allclose(out.numpy(), gold.numpy(), atol=ATOL)
+
+
+def test_decode_workspace_is_kept_per_stream():
+    """K4's split workspace: one per (device, stream), reused while it is
+    large enough and replaced by a larger one when a call needs more."""
+    dev = torch.device("cpu")
+    try:
+        a = kdecode.workspace(dev, -1, 64)
+        assert a.dtype == torch.float32 and a.numel() == 64
+        assert kdecode.workspace(dev, -1, 32) is a
+        b = kdecode.workspace(dev, -1, 128)
+        assert b is not a and b.numel() == 128
+        assert kdecode.workspace(dev, -1, 64) is b
+        assert kdecode.workspace(dev, -2, 32) is not b
+    finally:
+        kdecode._workspaces.pop((dev, -1), None)
+        kdecode._workspaces.pop((dev, -2), None)
+
+
+def _flash_bf16_p(q, k, v, causal, window, q_offset, tile, parts):
+    """K3's tensor-core arithmetic in plain torch: f32 scores of the
+    inputs in log2 units, an online softmax over key tiles of ``tile``,
+    the weights as the P.V products take them — ``parts`` 1: P rounded to
+    bf16 (and summed so); 2: P_hi + P_lo, two bf16 parts (the shipped
+    kernel; the row sum in f32) — and one rounding of the output to q's
+    dtype.  A row that keeps no key scores 0 on every key."""
+    b, h, sq, hd = q.shape
+    kr = ref.repeat_kv(k, h // k.shape[1]).float()
+    vr = ref.repeat_kv(v, h // k.shape[1]).float()
+    sk = kr.shape[2]
+    qp = q_offset + torch.arange(sq)[:, None]
+    kp = torch.arange(sk)[None, :]
+    keep = (kp <= qp) if causal else torch.ones(sq, sk, dtype=torch.bool)
+    if window:
+        keep &= qp - kp < window
+    empty = ~keep.any(dim=1)
+    keep[empty] = True
+    sl2 = math.log2(math.e) / math.sqrt(hd)
+    m = torch.full((b, h, sq), ref.NEG_INF)
+    l = torch.zeros(b, h, sq)
+    o = torch.zeros(b, h, sq, hd)
+    for k0 in range(0, sk, tile):
+        cols = slice(k0, k0 + tile)
+        x = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr[:, :, cols]) * sl2
+        x = torch.where(empty[:, None], 0.0, x)
+        x = torch.where(keep[:, cols], x, -math.inf)
+        mx = torch.maximum(m, x.amax(dim=-1))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(x - mx[..., None])
+        p_hi = p.bfloat16().float()
+        w = p_hi if parts == 1 else p_hi + (p - p_hi).bfloat16().float()
+        l = l * alpha + (w if parts == 1 else p).sum(dim=-1)
+        o = o * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", w,
+                                                vr[:, :, cols])
+        m = mx
+    return (o / l[..., None]).to(q.dtype)
+
+
+# chip_smoke.py's FLASH_CASES: (B, H, KV, Sq, Sk, hd, causal, window,
+# q_offset), with the kernel's key tile (32 keys at hd 256, else 64)
+BF16_P_FLASH = [
+    (1, 16, 8, 64, 64, 128, True, 0, 0),
+    (1, 16, 8, 1024, 1024, 128, True, 0, 0),
+    (1, 4, 1, 1024, 1024, 256, True, 512, 0),
+    (1, 32, 32, 1024, 1024, 64, True, 0, 0),
+    (1, 4, 2, 37, 37, 16, True, 4, 5),
+]
+
+
+@pytest.mark.parametrize("parts", [1, 2])
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,causal,window,q_offset",
+                         BF16_P_FLASH)
+def test_flash_bf16_weights_stay_within_one_ulp(b, h, kv, sq, sk, hd, causal,
+                                                window, q_offset, parts):
+    """The softmax weights in bf16 (one part, or hi + lo as K3 ships)
+    keep K3 within the bf16 tolerance of its plain version: one ulp at
+    the largest |output|.  Before the output's own rounding the two
+    differ by less than half that ulp with one part, so the one rounding
+    of each cannot put them two ulps apart; with two parts by less than
+    a 256th of it (the weights keep about 16 bits)."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(sq + hd, b, h, kv, sq, sk, hd))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    tile = 32 if hd > 128 else 64
+    out = _flash_bf16_p(q, k, v, tile=tile, parts=parts, **kw)
+    gold = ref.flash_attention_ref(q, k, v, **kw)
+    ulp = 2.0 ** (math.floor(math.log2(gold.float().abs().max().item())) - 7)
+    err = (out.float() - gold.float()).abs().max().item()
+    assert torch.isfinite(out.float()).all()
+    assert err <= ulp, (err, ulp)
+    # the same bf16 values in f32: no rounding of the output on either side
+    qf, kf, vf = q.float(), k.float(), v.float()
+    unrounded = _flash_bf16_p(qf, kf, vf, tile=tile, parts=parts, **kw)
+    exact = ref.flash_attention_ref(qf, kf, vf, **kw)
+    diff = (unrounded - exact).abs().max().item()
+    assert diff < (ulp / 2 if parts == 1 else ulp / 256), (diff, ulp)

@@ -26,7 +26,9 @@ import math  # noqa: E402
 
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import ops, paged_decode, ref  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, sm_count, split_plan,
+)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.grouped_matmul import grouped_matmul  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
@@ -125,15 +127,28 @@ def _rand(gen, dev, dtype, *shape):
 
 # (B, H, KV, Sq, Sk, hd, causal, window, q_offset): chip_smoke.py's K3
 # shapes — internlm2's first chunk and full prompt, a gemma3 local layer,
-# the smoke shape (hd 16, ragged, two rows that keep no key) — and odd
-# widths
+# a zamba2 prompt, the smoke shape (hd 16, ragged, two rows that keep no
+# key) — odd widths, the hd 64 and hd 32 templates, an Sk that is not a
+# multiple of the 64-key tile, window edges inside a key tile (64 keys,
+# 32 at hd 256), and grids large enough (B H blocks >= 2 x 132 SMs) for
+# one warp group a CTA, ragged, windowed and with rows that keep no key
 FLASH_SHAPES = [
     (1, 16, 8, 64, 64, 128, True, 0, 0),
     (1, 16, 8, 1024, 1024, 128, True, 0, 0),
     (1, 4, 1, 1024, 1024, 256, True, 512, 0),
+    (1, 32, 32, 1024, 1024, 64, True, 0, 0),
     (1, 4, 2, 37, 37, 16, True, 4, 5),
     (2, 6, 3, 65, 100, 24, False, 0, 0),
     (1, 2, 1, 33, 97, 256, True, 16, 64),
+    (2, 24, 8, 200, 200, 64, True, 0, 0),
+    (2, 4, 4, 130, 130, 32, True, 0, 0),
+    (1, 4, 2, 50, 157, 128, True, 0, 107),
+    (1, 4, 2, 96, 157, 128, False, 0, 0),
+    (1, 4, 2, 192, 192, 128, True, 40, 0),
+    (1, 4, 1, 256, 256, 256, True, 100, 0),
+    (2, 16, 8, 600, 600, 128, True, 100, 0),
+    (6, 8, 1, 512, 512, 256, True, 300, 0),
+    (2, 140, 70, 37, 37, 16, True, 4, 5),
 ]
 
 
@@ -169,6 +184,8 @@ DECODE_SHAPES = [
     (8, 16, 8, 1024, 128, 512),
     (3, 6, 2, 50, 24, 7),
     (2, 3, 3, 17, 16, 0),
+    (8, 24, 8, 1024, 64, 0),
+    (8, 4, 1, 1024, 256, 300),
 ]
 
 
@@ -192,6 +209,69 @@ def test_decode_kernel_matches_plain(dev, dtype, b, h, kv, s, hd, window):
     assert out.dtype == dt and torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), plain.float(), atol=_atol(plain),
                                rtol=0)
+
+
+#: a position EDGE + d stands for d keys past the first split edge of K4's
+#: plan on the card at hand (its split length)
+EDGE = 1 << 20
+
+
+# (B, H, KV, S, hd, window, positions): rows one before, at and one past
+# the first split edge of the plan; the first and last slot; rows that
+# keep no key (cur_pos -1: the mean of V over all S), alone and beside
+# windowed rows
+DECODE_POSITIONS = [
+    (1, 16, 8, 1024, 128, 0, [EDGE - 1]),
+    (1, 16, 8, 1024, 128, 0, [EDGE]),
+    (1, 16, 8, 1024, 128, 0, [EDGE + 1]),
+    (8, 4, 1, 1024, 256, 0, [0, 1023, 1, 1022, 64, 511, 512, 700]),
+    (1, 16, 8, 1024, 128, 0, [-1]),
+    (4, 16, 8, 1024, 128, 512, [-1, 0, 700, 1023]),
+    (3, 6, 2, 300, 64, 0, [-1, 150, 299]),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,s,hd,window,positions", DECODE_POSITIONS)
+def test_decode_kernel_at_split_edges(dev, dtype, b, h, kv, s, hd, window,
+                                      positions):
+    """K4 where its key-axis splits meet, and where a row keeps no key."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(s + hd + b + 1)
+    q = _rand(gen, dev, dt, b, h, hd)
+    cache = _rand(gen, dev, dt, 2, b, kv, s, hd)
+    k, v = cache[0], cache[1]
+    n_splits, split_len = split_plan(b, h, kv, s,
+                                     sm_count(torch.cuda.current_device()))
+    assert n_splits > 1
+    positions = [p - EDGE + split_len if p > EDGE // 2 else p
+                 for p in positions]
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    out = decode_attention(q, k, v, pos, window=window)
+    plain = ref.decode_attention_ref(q, k, v, pos, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), plain.float(), atol=_atol(plain),
+                               rtol=0)
+
+
+def test_attention_kernels_are_deterministic(dev):
+    """Two launches on the same inputs give the same bits: K3's sums and
+    K4's merge of its splits run in a fixed order."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = _rand(gen, dev, torch.bfloat16, 1, 16, 1024, 128)
+    k = _rand(gen, dev, torch.bfloat16, 1, 8, 1024, 128)
+    v = _rand(gen, dev, torch.bfloat16, 1, 8, 1024, 128)
+    a = flash_attention(q, k, v)
+    b = flash_attention(q, k, v)
+    qd = _rand(gen, dev, torch.bfloat16, 8, 4, 256)
+    cache = _rand(gen, dev, torch.bfloat16, 2, 8, 1, 1024, 256)
+    pos = torch.randint(0, 1024, (8,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    c = decode_attention(qd, cache[0], cache[1], pos)
+    d = decode_attention(qd, cache[0], cache[1], pos)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
 
 
 def test_attention_wrappers_reject_what_the_kernels_cannot_take(dev):
