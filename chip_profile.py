@@ -8,6 +8,10 @@ Run from the root of a checkout::
     python3 chip_profile.py --arch mamba2-2.7b             # Mamba-2
     python3 chip_profile.py --arch zamba2-1.2b             # the hybrid
 
+or, without the profiler, the host side of the same schedule::
+
+    python3 chip_profile.py --arch granite-moe-3b-a800m --host 3
+
 Serves ``chip_smoke.py``'s B and C tenants on full-width internlm2-1.8b,
 or its whole granite-moe, mamba2 or zamba2 schedule (random bf16 weights
 from a seed), through the port's MURS engine (the paged-decode kernel on
@@ -20,7 +24,11 @@ which tells a dtype cast of the unembedding weight from one of an
 activation — and those whose own host time is largest, then the
 ``nvidia-smi`` name and power limit.  The profiler's own host cost lengthens the window,
 so the busy share is a lower bound; it is null where the profiler saw no
-device time.
+device time.  ``--host N`` serves the schedule N more times with no
+profiler and prints, for each, the wall time, the median decode-only
+tick and the host time spent inside each port kernel's ``ops`` call
+(the calls are not waited for, so this is the time the tick's host
+thread spends there), for comparing two trees on a host-bound tick.
 """
 
 import argparse
@@ -36,7 +44,7 @@ PORT_KERNELS = {
     "paged_decode_attention": ("paged_decode_kernel",),
     "flash_attention": ("flash_kernel",),
     "decode_attention": ("decode_kernel",),
-    "grouped_matmul": ("gmm_mma_kernel", "gmm_simple_kernel"),
+    "grouped_matmul": ("gmm_tma_kernel", "gmm_simple_kernel"),
     "ssd_scan": ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
                  "ssd_chunk_output_kernel"),
 }
@@ -45,7 +53,11 @@ PORT_KERNELS = {
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=PROFILED[0], choices=PROFILED)
-    arch = ap.parse_args().arch
+    ap.add_argument("--host", type=int, default=0, metavar="N",
+                    help="serve N times without the profiler and print "
+                         "the host time inside the port kernels' calls")
+    args = ap.parse_args()
+    arch = args.arch
     sys.path.insert(0, str(smoke.SRC))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -61,16 +73,20 @@ def main() -> int:
 
     cfg = ARCHS[arch]
     params = init_model(cfg, smoke.SEED, device=smoke.DEV)
+
+    def engine(warm=False):
+        if cfg.moe is not None:
+            return smoke.granite_engine(cfg, params, smoke.DEV)
+        if cfg.ssm is not None:
+            return smoke.ssm_engine(cfg, params, smoke.DEV)
+        return smoke.serve_engine(cfg, params, ("B",) if warm else ("B", "C"),
+                                  False)
+
     # a first run outside the window builds the kernels and warms the caches
-    if cfg.moe is not None:
-        smoke.drive(*smoke.granite_engine(cfg, params, smoke.DEV))
-        eng, sched = smoke.granite_engine(cfg, params, smoke.DEV)
-    elif cfg.ssm is not None:
-        smoke.drive(*smoke.ssm_engine(cfg, params, smoke.DEV))
-        eng, sched = smoke.ssm_engine(cfg, params, smoke.DEV)
-    else:
-        smoke.drive(*smoke.serve_engine(cfg, params, ("B",), False))
-        eng, sched = smoke.serve_engine(cfg, params, ("B", "C"), False)
+    smoke.drive(*engine(warm=True))
+    if args.host:
+        return host_runs(torch, cfg, engine, args.host)
+    eng, sched = engine()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -113,6 +129,47 @@ def main() -> int:
                 "top_ops_self_host_ms": [
                     [e.key, e.count, e.self_cpu_time_total / 1e3]
                     for e in host_ops]})
+    print(smoke.nvidia_smi(), flush=True)
+    return 0
+
+
+def host_runs(torch, cfg, engine, repeats):
+    """Serve ``repeats`` times with each port kernel's ``ops`` call timed
+    on the host; one JSON line a run."""
+    import statistics
+
+    from repro_torch.kernels import ops
+
+    spent, calls = {}, {}
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[name] += time.perf_counter() - t0
+            calls[name] += 1
+            return out
+        return wrapped
+
+    names = [fn.__name__ for fn in ops.WRAPPERS]
+    for name in names:  # the model calls them through ``ops``
+        setattr(ops, name, timed(name, getattr(ops, name)))
+    for run in range(repeats):
+        spent.update(dict.fromkeys(names, 0.0))
+        calls.update(dict.fromkeys(names, 0))
+        eng, sched = engine()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ticks = smoke.drive(eng, sched)
+        torch.cuda.synchronize()
+        decode = [ms for ms, token, chunked in ticks if token and not chunked]
+        smoke.emit({"phase": "host", "arch": cfg.name, "run": run,
+                    "ticks": len(ticks),
+                    "wall_s": time.perf_counter() - t0,
+                    "median_decode_only_tick_ms": statistics.median(decode),
+                    "host_ms_in_call": {n: 1e3 * spent[n] for n in names
+                                        if calls[n]},
+                    "calls": {n: calls[n] for n in names if calls[n]}})
     print(smoke.nvidia_smi(), flush=True)
     return 0
 

@@ -37,10 +37,10 @@ _F = ctypes.c_float
 #: (restype int, the launch's cudaError)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "paged_decode": {
-        "launch_paged_decode": [_P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _F, _I, _P],
-        "launch_paged_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _F, _I, _P],
+        "launch_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                *[_I] * 8, _F, _I, _P],
+        "launch_paged_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     *[_I] * 8, _F, _I, _P],
     },
     "flash_attention": {
         "launch_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

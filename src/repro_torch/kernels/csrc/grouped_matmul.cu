@@ -13,42 +13,42 @@
 // The TPU kernel demands C, D and F that are multiples of its blocks
 // (moe_gmm.py:52-59); this one takes any sizes and masks the tails.
 //
-// Bound: at every serving shape of granite-moe (E 40, D/F 1536/512, C 4 at
-// decode, C = ceil(S / 4) at prefill) the product moves weight bytes: one
-// gate/up launch reads 62.9 MB of w for 0.25 GFLOP at C 4, and even C 256
-// is bytes-bound on the tensor cores.  So the one design rule is that
-// every weight element is read from HBM once per launch.
+// Bound (3.35 TB/s, 989 TFLOP/s bf16, granite-moe: E 40, D/F 1536/512):
+// every serving shape moves bytes.  Decode (C 4) reads 62.9 MB of w for
+// 0.25 GFLOP: 0.019 ms; a 1024-token prefill (C 256) reads w, x and
+// writes y, 104.9 MB for 16.1 GFLOP: 0.031 ms of bytes against 0.016 ms
+// of products.  Every w element is read from HBM once per launch; the
+// second reads of x and w (the tiles of one expert) are L2 hits.
 //
-// Design.  bf16 with 16-byte rows (every serving shape) takes the tensor
-// cores: gmm_mma_kernel, one CTA of 8 warps per (expert, 64 output
-// columns), all C rows of the expert in one block of up to 256 rows, D
-// swept in 64-deep chunks through a 4-stage cp.async ring in shared memory,
-// mma.sync m16n8k16 with f32 accumulators (the helpers of mma.cuh).  Each
-// w element is loaded once per launch (C > 256 loops over row blocks and
-// reloads w from L2).
+// Design.  bf16 with 16-byte rows (every serving shape) takes
+// gmm_tma_kernel at every capacity: 64 x 128 output tiles, TMA copies
+// into a 3-deep ring of shared memory fed by a producer warp, wgmma
+// m64n128k16 in one consumer warpgroup (see the kernel's note).  90
+// registers and 73 KB of shared memory a CTA (ptxas -v, the flags of
+// _build.py; no spills), so three CTAs share an SM.  The weights' TMA
+// maps are kept between calls.  Measured against it on the H100
+// (PERF.md), and lost at every capacity: 128-row tiles (two consumer
+// warpgroups) and 256-column ones, which fit fewer CTAs on an SM;
+// clusters of 2 and 4 row tiles sharing w by TMA multicast; and mma.sync
+// tiles fed by cp.async, with or without a split of D at decode (w's
+// bytes bound decode, not the number of CTAs).  At C 256 the 640 tiles
+// fill 1.6 waves of the card's 396 CTA slots, which costs about a fifth.
 //
 // f32, or bf16 with a ragged D, F or x stride, takes gmm_simple_kernel on
 // the CUDA cores: one thread per (expert, output column, block of 4 rows),
 // w read through L2 (each element once per 4 rows) 8 loads at a time, the
-// x element of a step shared by the whole warp.  It is the reference path's and the odd
-// shapes' kernel; no serving shape of a bf16 model reaches it.
-//
-// Later work: deeper rings and TMA loads for the decode shapes, wgmma for
-// the prefill ones, and skipping the capacity rows that hold no token.
+// x element of a step shared by the whole warp.  It is the reference
+// path's and the odd shapes' kernel; no serving shape of a bf16 model
+// reaches it.  Its in-order sum is the only order that held 1e-5.
+
+#include <cuda.h>
+
+#include <mutex>
 
 #include "common.cuh"
-#include "mma.cuh"
 
 namespace {
 
-using repro_torch::cp_async16;
-using repro_torch::cp_async_commit;
-using repro_torch::cp_async_wait_group;
-using repro_torch::mma_bf16;
-using repro_torch::pack_bf16;
-
-constexpr int kThreads = 256;
-constexpr int kMaxSmem = 232448;  // bytes of shared memory a block can use
 constexpr int kMaxDevices = 64;
 
 template <typename T>
@@ -129,167 +129,343 @@ int launch_simple(const void* x, const void* w, void* y, int E, int C, int D,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------- bf16 MMA
-// The serving path's kernel: bf16 operands on the tensor cores
-// (mma.sync m16n8k16, f32 accumulators).  One CTA of 8 warps per (expert,
-// 64-column tile); warp w owns the 8 columns 8w..8w+7 of every 16-row
-// m-tile of the row block (MT m-tiles, BM = 16 MT <= 256 rows, so all C
-// rows of a serving shape are one block and every w element is loaded
-// once).  D is swept in 64-deep chunks through a 4-stage cp.async ring of
-// (x chunk [BM][64], w chunk [64][64]) in shared memory, rows padded by 16
-// bytes so the fragment loads are free of bank conflicts; rows past C,
-// columns past F and depths past D are zero-filled by the copy.
-constexpr int kBN = 64;
+// ------------------------------------------------------ wgmma (sm_90a)
+// Hopper's warpgroup products: wgmma.mma_async m64n128k16, A and B read
+// from shared memory through matrix descriptors, f32 accumulators in
+// registers (64 a thread; thread t of the warpgroup holds, for each n8
+// block j, rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j +
+// 2 (t % 4) (+ 1), the mma.sync C layout).
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator accesses across a wait
+__device__ __forceinline__ void fence_acc(float (&acc)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
+}
+
+// A shared-memory matrix descriptor for the 128-byte swizzle: start
+// address, leading and stride byte offsets (all >> 4), layout type 1
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d += A (64 x 16, K-major) . B (16 x 128, N-major: transposed)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------------ the bf16 kernel
+// gmm_tma_kernel: one CTA per (64-row tile, 128 columns, expert), blocks
+// numbered row tile fastest, then column tile, then expert, so the tiles
+// of one expert run side by side and the second reads of its x and w come
+// from L2.  Five warps:
+//   - the last is the producer: one lane issues, for each 64-deep chunk
+//     of D, one TMA copy of the x box [64 rows][64] and two of the w boxes
+//     [64][64 columns] into a free slot of a 3-deep ring, and arms the
+//     slot's "full" barrier with their byte count;
+//   - warps 0-3 are one consumer warpgroup: it waits on the slot's full
+//     barrier, runs four wgmma m64n128k16 on it (A = x and B = w read from
+//     shared memory through descriptors, f32 accumulators in registers),
+//     and once the products of a chunk are done arrives on its slot's
+//     "empty" barrier, which the producer waits on before refilling it.
+// No CTA-wide barrier in the loop.  The ring holds what the descriptors
+// name, in the 128-byte swizzle that TMA writes:
+//   x box, K-major: row r at 128 r bytes, its 16-byte piece j at
+//     (j ^ (r % 8)) * 16; 8-row groups 1024 bytes apart (SBO);
+//   w boxes, N-major: two 64-column halves 8192 bytes apart (LBO), row k
+//     of a half at 128 k bytes, piece j at (j ^ (k % 8)) * 16; 8-row
+//     groups 1024 bytes apart (SBO).
+// A step of 16 in K moves the x descriptor by 32 bytes and the w one by
+// 2048.  TMA fills the boxes' rows past C, columns past F and depths past
+// D with zeros, so every tail is exact.
+constexpr int kBM = 64;
+constexpr int kBN = 128;
 constexpr int kBK = 64;
-constexpr int kStages = 4;
-constexpr int kPad = 8;  // bf16 elements of padding per smem row
-constexpr int kRow = kBK + kPad;  // x chunk row (k contiguous)
-constexpr int kWRow = kBN + kPad;  // w chunk row (n contiguous)
+constexpr int kStages = 3;
+constexpr int kXBytes = kBM * kBK * 2;     // 8 KB
+constexpr int kWBytes = kBK * kBN * 2;     // 16 KB
+constexpr int kStageBytes = kXBytes + kWBytes;
+constexpr int kConsumers = 128;            // one warpgroup
+constexpr int kTmaThreads = kConsumers + 32;
+// the ring, and room to align it to the swizzle's 1024 bytes
+constexpr size_t kTmaSmem = static_cast<size_t>(kStages) * kStageBytes + 1024;
 
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-gmm_mma_kernel(const __nv_bfloat16* __restrict__ x,
-               const __nv_bfloat16* __restrict__ w,
-               __nv_bfloat16* __restrict__ y, int C, int D, int F,
-               long long xs_e, long long xs_c) {
-  constexpr int BM = 16 * MT;
-  constexpr int kStageElems = BM * kRow + kBK * kWRow;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          int c0, int c1, int c2,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__global__ void __launch_bounds__(kTmaThreads)
+gmm_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_w,
+               __nv_bfloat16* __restrict__ y, int C, int D, int F) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ __align__(8) uint64_t empty[kStages];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;   // fragment row / column group
-  const int t4 = lane % 4;  // thread in group
-  const int e = blockIdx.y;
-  const int f0 = blockIdx.x * kBN;
-  const __nv_bfloat16* xe = x + static_cast<long long>(e) * xs_e;
-  const __nv_bfloat16* we = w + static_cast<long long>(e) * D * F;
-  __nv_bfloat16* ye = y + static_cast<long long>(e) * C * F;
+  const int r0 = blockIdx.x * kBM;
+  const int f0 = blockIdx.y * kBN;
+  const int e = blockIdx.z;
   const int nk = (D + kBK - 1) / kBK;
-
-  for (int r0 = 0; r0 < C; r0 += BM) {
-    // copy chunk kt into ring slot s: x rows r0.., w rows kt*BK..
-    auto load = [&](int s, int kt) {
-      __nv_bfloat16* xs = ring + s * kStageElems;
-      __nv_bfloat16* ws = xs + BM * kRow;
-      const int k0 = kt * kBK;
-      for (int i = tid; i < BM * (kBK / 8); i += kThreads) {
-        const int r = i / (kBK / 8);
-        const int c = (i % (kBK / 8)) * 8;
-        const bool in = r0 + r < C && k0 + c < D;
-        cp_async16(xs + r * kRow + c,
-                   in ? xe + static_cast<long long>(r0 + r) * xs_c + k0 + c
-                      : xe,
-                   in);
-      }
-      for (int i = tid; i < kBK * (kBN / 8); i += kThreads) {
-        const int r = i / (kBN / 8);
-        const int c = (i % (kBN / 8)) * 8;
-        const bool in = k0 + r < D && f0 + c < F;
-        cp_async16(ws + r * kWRow + c,
-                   in ? we + static_cast<long long>(k0 + r) * F + f0 + c
-                      : we,
-                   in);
-      }
-    };
-
-    float acc[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
     }
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < nk) load(s, s);
-      cp_async_commit();
-    }
-    for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait_group<kStages - 2>();  // chunk kt has landed
-      __syncthreads();  // ... for every thread; slot (kt-1) % S is free
-      const int next = kt + kStages - 1;
-      if (next < nk) load(next % kStages, next);
-      cp_async_commit();
-      const __nv_bfloat16* xs = ring + (kt % kStages) * kStageElems;
-      const __nv_bfloat16* ws = xs + BM * kRow;
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        // B fragment (k x n = 16 x 8, "col"): k pairs 2 t4 (+8), column g
-        const __nv_bfloat16* wb = ws + (kk + 2 * t4) * kWRow + warp * 8 + g;
-        const uint32_t b0 = pack_bf16(wb[0], wb[kWRow]);
-        const uint32_t b1 = pack_bf16(wb[8 * kWRow], wb[9 * kWRow]);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          // A fragment (16 x 16, row): rows g (+8), k pairs 2 t4 (+8)
-          const __nv_bfloat16* xa = xs + (m * 16 + g) * kRow + kk + 2 * t4;
-          uint32_t a[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(xa);
-          a[1] = *reinterpret_cast<const uint32_t*>(xa + 8 * kRow);
-          a[2] = *reinterpret_cast<const uint32_t*>(xa + 8);
-          a[3] = *reinterpret_cast<const uint32_t*>(xa + 8 * kRow + 8);
-          mma_bf16(acc[m], a, b0, b1);
-        }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // the producer warp; one lane issues
+    if (tid == kConsumers) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(&empty[s], ((kt / kStages) - 1) & 1);
+        unsigned char* xs = ring + s * kStageBytes;
+        unsigned char* ws = xs + kXBytes;
+        mbar_expect_tx(&full[s], kStageBytes);
+        tma_load3(xs, &map_x, kt * kBK, r0, e, &full[s]);
+        tma_load3(ws, &map_w, f0, kt * kBK, e, &full[s]);
+        tma_load3(ws + 8192, &map_w, f0 + 64, kt * kBK, e, &full[s]);
       }
     }
-    cp_async_wait_group<0>();
-    __syncthreads();  // the ring is reused by the next row block
+    return;
+  }
 
-    // C fragment: rows g and g + 8, columns 2 t4 and 2 t4 + 1
-    const int col = f0 + warp * 8 + 2 * t4;
+  float acc[64];
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    const unsigned char* xs = ring + s * kStageBytes;
+    const unsigned char* ws = xs + kXBytes;
+    fence_acc(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = r0 + m * 16 + g + 8 * h;
-        if (r >= C) continue;
-        __nv_bfloat16* yr = ye + static_cast<long long>(r) * F;
-        if (col < F) yr[col] = __float2bfloat16(acc[m][2 * h]);
-        if (col + 1 < F) yr[col + 1] = __float2bfloat16(acc[m][2 * h + 1]);
-      }
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      wgmma_m64n128k16(acc, smem_desc(xs + kk * 32, 16, 1024),
+                       smem_desc(ws + kk * 2048, 8192, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // chunk kt - 1's products are done: free its slot
+    fence_acc(acc);
+    if (kt > 0 && tid == 0) mbar_arrive(&empty[(kt - 1) % kStages]);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // the C layout: rows 16 (warp) + lane / 4 (+ 8), columns 8 j + 2 (lane
+  // % 4) (+ 1); F is a multiple of 8, so both columns are in or out
+  const int lane = tid % 32;
+  const int row = r0 + (tid / 32) * 16 + lane / 4;
+  __nv_bfloat16* ye = y + static_cast<long long>(e) * C * F;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = f0 + 8 * j + 2 * (lane % 4);
+    if (col >= F) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      if (r >= C) continue;
+      *reinterpret_cast<__nv_bfloat162*>(
+          ye + static_cast<long long>(r) * F + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
 }
 
-template <int MT>
-int launch_mma(const void* x, const void* w, void* y, int E, int C, int D,
-               int F, long long xs_e, long long xs_c, cudaStream_t stream) {
-  const size_t bytes = static_cast<size_t>(kStages) *
-                       (16 * MT * kRow + kBK * kWRow) * sizeof(__nv_bfloat16);
+// cuTensorMapEncodeTiled, reached through the runtime (no libcuda link)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 3-D bf16 map (dims innermost first, strides of dims 1 and 2 in
+// elements) with a box of (64, box1, 1) and the 128-byte swizzle.  Maps
+// are kept by everything they encode (the weights' maps repeat every
+// call; the caching allocator often hands x the same address), 256 of
+// them, replaced round robin.
+struct MapKey {
+  const void* ptr;
+  long long d0, d1, d2, s1, s2;
+  int box1;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && d0 == o.d0 && d1 == o.d1 && d2 == o.d2 &&
+           s1 == o.s1 && s2 == o.s2 && box1 == o.box1;
+  }
+};
+
+constexpr int kMaps = 256;
+std::mutex map_lock;
+MapKey map_keys[kMaps];
+CUtensorMap map_vals[kMaps];
+int map_used = 0, map_next = 0;
+
+int make_map(CUtensorMap* out, const MapKey& k) {
+  std::lock_guard<std::mutex> guard(map_lock);
+  for (int i = 0; i < map_used; ++i) {
+    if (map_keys[i] == k) {
+      *out = map_vals[i];
+      return 0;
+    }
+  }
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k.d0),
+                              static_cast<cuuint64_t>(k.d1),
+                              static_cast<cuuint64_t>(k.d2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(k.s1) * 2,
+                                 static_cast<cuuint64_t>(k.s2) * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(k.box1), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  if (encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(k.ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int slot = map_used < kMaps ? map_used++ : map_next++ % kMaps;
+  map_keys[slot] = k;
+  map_vals[slot] = *out;
+  return 0;
+}
+
+int launch_bf16_tma(const void* x, const void* w, void* y, int E, int C,
+                    int D, int F, long long xs_e, long long xs_c,
+                    cudaStream_t stream) {
+  CUtensorMap mx, mw;
+  // x [E][C][D] through its strides; w [E][D][F] contiguous
+  int err = make_map(&mx, MapKey{x, D, C, E, xs_c, xs_e, kBM});
+  if (err != 0) return err;
+  err = make_map(&mw, MapKey{w, F, D, E, F, static_cast<long long>(D) * F,
+                             kBK});
+  if (err != 0) return err;
   // the attribute is the function's on each device: set it once per device
   static bool allowed[kMaxDevices] = {};
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t cerr = cudaGetDevice(&dev);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
   if (dev >= kMaxDevices || !allowed[dev]) {
-    err = cudaFuncSetAttribute(gmm_mma_kernel<MT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    cerr = cudaFuncSetAttribute(gmm_tma_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(kTmaSmem));
+    if (cerr != cudaSuccess) return static_cast<int>(cerr);
     if (dev < kMaxDevices) allowed[dev] = true;
   }
-  const dim3 grid((F + kBN - 1) / kBN, E);
-  gmm_mma_kernel<MT><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(y),
-      C, D, F, xs_e, xs_c);
+  const dim3 grid((C + kBM - 1) / kBM, (F + kBN - 1) / kBN, E);
+  gmm_tma_kernel<<<grid, kTmaThreads, kTmaSmem, stream>>>(
+      mx, mw, static_cast<__nv_bfloat16*>(y), C, D, F);
   return static_cast<int>(cudaGetLastError());
-}
-
-// row block of 16 MT rows: the smallest power-of-two MT that covers C,
-// at most 16 (C > 256 loops over row blocks)
-int launch_bf16_mma(const void* x, const void* w, void* y, int E, int C,
-                    int D, int F, long long xs_e, long long xs_c,
-                    cudaStream_t stream) {
-  if (C <= 16) return launch_mma<1>(x, w, y, E, C, D, F, xs_e, xs_c, stream);
-  if (C <= 32) return launch_mma<2>(x, w, y, E, C, D, F, xs_e, xs_c, stream);
-  if (C <= 64) return launch_mma<4>(x, w, y, E, C, D, F, xs_e, xs_c, stream);
-  if (C <= 128) return launch_mma<8>(x, w, y, E, C, D, F, xs_e, xs_c, stream);
-  return launch_mma<16>(x, w, y, E, C, D, F, xs_e, xs_c, stream);
 }
 
 }  // namespace
 
+// dtype codes: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int launch_grouped_matmul(const void* x, const void* w, void* y,
                                      int E, int C, int D, int F,
                                      long long xs_e, long long xs_c,
@@ -302,13 +478,13 @@ extern "C" int launch_grouped_matmul(const void* x, const void* w, void* y,
     return launch_simple<float>(x, w, y, E, C, D, F, xs_e, xs_c, s);
   }
   if (dtype == 1) {
-    // the tensor-core kernel needs 16-byte rows: D, F and the x strides
-    // multiples of 8 elements, x and w 16-byte aligned
+    // TMA needs 16-byte rows: D, F and the x strides multiples of 8
+    // elements, x and w 16-byte aligned
     const bool rows16 = D % 8 == 0 && F % 8 == 0 && xs_e % 8 == 0 &&
                         xs_c % 8 == 0 &&
                         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                         reinterpret_cast<uintptr_t>(w) % 16 == 0;
-    if (rows16) return launch_bf16_mma(x, w, y, E, C, D, F, xs_e, xs_c, s);
+    if (rows16) return launch_bf16_tma(x, w, y, E, C, D, F, xs_e, xs_c, s);
     return launch_simple<__nv_bfloat16>(x, w, y, E, C, D, F, xs_e, xs_c,
                                          s);
   }

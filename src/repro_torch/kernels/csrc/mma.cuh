@@ -1,5 +1,5 @@
-// Tensor-core and async-copy helpers shared by the port's bf16 kernels
-// (grouped_matmul.cu, flash_attention.cu): 16-byte cp.async copies into
+// Tensor-core and async-copy helpers of the port's mma.sync kernels
+// (flash_attention.cu): 16-byte cp.async copies into
 // shared memory and their commit / wait groups, ldmatrix fragment loads,
 // and mma.sync m16n8k16 bf16 with f32 accumulators.
 //

@@ -4,7 +4,7 @@ It checks device, dtype, shape, strides and alignment and raises on
 anything the kernel does not take, plans the split of the key axis
 (:func:`split_plan`, once a shape), allocates the output with
 ``torch.empty`` and takes the splits' f32 workspace from
-:func:`workspace`, launches on the current stream without
+:func:`.splits.workspace`, launches on the current stream without
 synchronising, raises if the launch reports an error, and adds one to
 ``launches`` (one call, however many splits).  It takes CUDA tensors
 only: the plain version is
@@ -14,14 +14,14 @@ only: the plain version is
 
 from __future__ import annotations
 
-import functools
 import math
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from . import _build
 from ._build import DTYPE_CODE, raise_on_launch_error, row_strides
+from .splits import even_split, plan_cache, workspace
 
 #: CTAs the split aims for on each SM of the card
 CTAS_PER_SM = 2
@@ -37,12 +37,6 @@ def head_group(h: int, kv: int) -> int:
     return 4 if g % 4 == 0 else 2 if g % 2 == 0 else 1
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """The streaming multiprocessors of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def split_plan(b: int, h: int, kv: int, s: int,
                sms: int) -> Tuple[int, int]:
     """(n_splits, split_len) of the key axis [0, S) on a card of ``sms``
@@ -50,38 +44,15 @@ def split_plan(b: int, h: int, kv: int, s: int,
     ``CTAS_PER_SM`` · sms, none shorter than ``MIN_SPLIT`` keys, and
     split_len · n_splits ≥ S with no empty last split.  From the shapes
     alone: the positions stay on the device."""
-    ctas = b * (h // head_group(h, kv))
-    n = min(-(-CTAS_PER_SM * sms // ctas), s // MIN_SPLIT)
-    if n <= 1:
-        return 1, s
-    length = -(-s // n)
-    return -(-s // length), length
+    return even_split(s, b * (h // head_group(h, kv)), sms, CTAS_PER_SM,
+                      MIN_SPLIT)
 
 
-@functools.lru_cache(maxsize=None)
+@plan_cache
 def _launch_plan(b: int, h: int, kv: int, s: int,
-                 index: int) -> Tuple[int, int, int]:
-    """(GT, n_splits, split_len) of a shape on CUDA device ``index``."""
-    return (head_group(h, kv), *split_plan(b, h, kv, s, sm_count(index)))
-
-
-#: one split workspace per (device, stream), reused by every call on that
-#: stream: the stream orders the calls, so none overwrites another's
-#: splits before its merge has read them
-_workspaces: Dict[Tuple[torch.device, int], torch.Tensor] = {}
-
-
-def workspace(device: torch.device, stream: int,
-              numel: int) -> torch.Tensor:
-    """At least ``numel`` f32 of ``stream``'s split workspace on
-    ``device``, grown with ``torch.empty`` when a call needs more (the
-    caching allocator hands the old block only to later work on the same
-    stream)."""
-    ws = _workspaces.get((device, stream))
-    if ws is None or ws.numel() < numel:
-        ws = torch.empty(numel, dtype=torch.float32, device=device)
-        _workspaces[(device, stream)] = ws
-    return ws
+                 sms: int) -> Tuple[int, int, int]:
+    """(GT, n_splits, split_len) of a shape on a card of ``sms`` SMs."""
+    return (head_group(h, kv), *split_plan(b, h, kv, s, sms))
 
 
 def decode_attention(

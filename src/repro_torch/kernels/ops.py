@@ -59,19 +59,26 @@ def _on_cpu(q: torch.Tensor) -> bool:
     raise ValueError(f"no kernel path for device {q.device}")
 
 
-def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens):
-    """[BH, hd] attention of each row over its pool pages (see ``ref``)."""
+def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens, *,
+                           q_per_kv=1):
+    """[BH, hd] attention of each row over its pool pages (see ``ref``).
+    ``q_per_kv``: rows come in groups of that many that share one kv
+    head, with equal table and length rows; the kernel loads their pages
+    once per group and reads only the first row's table and length, so
+    unequal rows in a group give the other rows wrong attention, with no
+    error.  The plain version needs no grouping."""
     if _on_cpu(q):
         return ref.paged_decode_attention_ref(
             q, k_pool, v_pool, page_table, seq_lens
         )
     return paged_decode.paged_decode_attention(
-        q, k_pool, v_pool, page_table, seq_lens
+        q, k_pool, v_pool, page_table, seq_lens, q_per_kv=q_per_kv
     )
 
 
 def paged_decode_attention_int8(
-    q, k_pool, v_pool, k_scales, v_scales, page_table, seq_lens
+    q, k_pool, v_pool, k_scales, v_scales, page_table, seq_lens, *,
+    q_per_kv=1,
 ):
     """As :func:`paged_decode_attention` over int8 code pools with
     per-page f32 scales."""
@@ -80,7 +87,8 @@ def paged_decode_attention_int8(
             q, k_pool, v_pool, k_scales, v_scales, page_table, seq_lens
         )
     return paged_decode.paged_decode_attention_int8(
-        q, k_pool, v_pool, k_scales, v_scales, page_table, seq_lens
+        q, k_pool, v_pool, k_scales, v_scales, page_table, seq_lens,
+        q_per_kv=q_per_kv,
     )
 
 

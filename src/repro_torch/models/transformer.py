@@ -451,7 +451,9 @@ def decode_step_paged(
         pool row of (kv head g, page pid) = g · n_pool + pid
         table row of (request b, q head h) = table[b] + (h // G) · n_pool
 
-    — so the whole batch is one [B·H, W] kernel call.  With ``int8`` the
+    — so the whole batch is one [B·H, W] kernel call, whose G = H / KV
+    adjacent rows of one kv head share a table and length row (the
+    kernel's ``q_per_kv``: it loads their pages once).  With ``int8`` the
     pool views are quantized per page and K2 runs instead of K1.
 
     Pad rows carry ``row_slot == n_slots``; the JAX package drops their
@@ -517,12 +519,12 @@ def decode_step_paged(
             v_codes, v_scales = _quantize_pool_int8(v_pool)
             out = kernel_ops.paged_decode_attention_int8(
                 qf, k_codes, v_codes, k_scales, v_scales,
-                table_flat, lens_flat,
+                table_flat, lens_flat, q_per_kv=G,
             )
         else:
             out = kernel_ops.paged_decode_attention(
                 qf, k_pool.contiguous(), v_pool.contiguous(),
-                table_flat, lens_flat,
+                table_flat, lens_flat, q_per_kv=G,
             )
         out = out.reshape(B, 1, H * hd)
         x = x + torch.matmul(out, ap["wo"])

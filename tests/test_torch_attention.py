@@ -41,6 +41,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.kernels import decode_attention as kdecode  # noqa: E402
+from repro_torch.kernels import splits  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
@@ -358,16 +359,16 @@ def test_decode_workspace_is_kept_per_stream():
     large enough and replaced by a larger one when a call needs more."""
     dev = torch.device("cpu")
     try:
-        a = kdecode.workspace(dev, -1, 64)
+        a = splits.workspace(dev, -1, 64)
         assert a.dtype == torch.float32 and a.numel() == 64
-        assert kdecode.workspace(dev, -1, 32) is a
-        b = kdecode.workspace(dev, -1, 128)
+        assert splits.workspace(dev, -1, 32) is a
+        b = splits.workspace(dev, -1, 128)
         assert b is not a and b.numel() == 128
-        assert kdecode.workspace(dev, -1, 64) is b
-        assert kdecode.workspace(dev, -2, 32) is not b
+        assert splits.workspace(dev, -1, 64) is b
+        assert splits.workspace(dev, -2, 32) is not b
     finally:
-        kdecode._workspaces.pop((dev, -1), None)
-        kdecode._workspaces.pop((dev, -2), None)
+        splits._workspaces.pop((dev, -1), None)
+        splits._workspaces.pop((dev, -2), None)
 
 
 def _flash_bf16_p(q, k, v, causal, window, q_offset, tile, parts):

@@ -27,8 +27,9 @@ import math  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import ops, paged_decode, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention, sm_count, split_plan,
+    decode_attention, split_plan,
 )
+from repro_torch.kernels.splits import sm_count  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.grouped_matmul import grouped_matmul  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
@@ -119,6 +120,127 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(dev):
                                             table, lens)
     with pytest.raises(ValueError, match="contiguous"):
         paged_decode.paged_decode_attention(q, k, v, table.t(), lens)
+
+
+def _grouped(dev, dtype, *, seed, lens, g, kv, hd, page, width,
+             bad_pid=False):
+    """A folded batch as the model builds it: request b's table row
+    repeated for its G·KV q-heads with the kv-head offset (h // G) ·
+    n_pool, its length repeated; with ``bad_pid`` the first entry names a
+    page past the pool (the kernel clamps it)."""
+    rng = np.random.default_rng(seed)
+    reqs, h = len(lens), g * kv
+    n_pool = reqs * width + 3
+    perm = rng.permutation(n_pool)[: reqs * width].reshape(reqs, width)
+    table = (perm[:, None, :] + (np.arange(h) // g)[None, :, None]
+             * n_pool).reshape(reqs * h, width)
+    if bad_pid:
+        table[:g, 0] = 10**6  # every row of the first group
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(reqs * h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(kv * n_pool, page, hd, generator=gen,
+                    device=dev).to(dtype)
+    v = torch.randn(kv * n_pool, page, hd, generator=gen,
+                    device=dev).to(dtype)
+    return (q, k, v, torch.as_tensor(table, dtype=torch.int32, device=dev),
+            torch.as_tensor(np.repeat(lens, h), dtype=torch.int32,
+                            device=dev))
+
+
+# (lens per request, G, KV, hd, page, W): G 1-4; hd 64, 128 and 256;
+# pages of 8, 16 and 32; zero-length rows; lengths on page and split
+# edges of the card's own plan (64 pages of 16 split in 8s: 128, 129,
+# 127); a table wider than one split may sweep (130 pages)
+GROUPED = [
+    ([0, 128, 129, 127, 1, 1024, 500, 16], 2, 8, 128, 16, 64),
+    ([700, 0, 33, 257, 64, 1023, 1, 512], 3, 8, 64, 16, 64),
+    ([40, 0, 95], 4, 2, 128, 8, 12),
+    ([9, 100], 1, 4, 64, 32, 130),
+    ([250, 0, 31], 4, 1, 256, 16, 16),
+    ([17, 300], 3, 2, 256, 8, 40),
+    ([16, 48, 0], 2, 1, 64, 16, 4),
+]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lens,g,kv,hd,page,width", GROUPED)
+def test_grouped_kernel_matches_plain(dev, int8, dtype, lens, g, kv, hd,
+                                      page, width):
+    dt = getattr(torch, dtype)
+    q, k, v, table, seq = _grouped(dev, dt, seed=hd + g + width, lens=lens,
+                                   g=g, kv=kv, hd=hd, page=page, width=width)
+    if int8:
+        kc, ks = _quantize_pool_int8(k)
+        vc, vs = _quantize_pool_int8(v)
+        args = (q, kc, vc, ks, vs, table, seq)
+        out = paged_decode.paged_decode_attention_int8(*args, q_per_kv=g)
+        plain = ref.paged_decode_attention_int8_ref(*args)
+    else:
+        args = (q, k, v, table, seq)
+        out = paged_decode.paged_decode_attention(*args, q_per_kv=g)
+        plain = ref.paged_decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), plain.float(), atol=_atol(plain),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_grouped_kernel_clamps_page_ids(dev, int8):
+    """A table entry past the pool reads the pool's last page, as the JAX
+    gather clamps; the plain version takes the clamped table."""
+    q, k, v, table, seq = _grouped(dev, torch.bfloat16, seed=5,
+                                   lens=[40, 30], g=2, kv=2, hd=64, page=16,
+                                   width=4, bad_pid=True)
+    clamped = table.clamp(0, k.shape[0] - 1)
+    if int8:
+        kc, ks = _quantize_pool_int8(k)
+        vc, vs = _quantize_pool_int8(v)
+        out = paged_decode.paged_decode_attention_int8(
+            q, kc, vc, ks, vs, table, seq, q_per_kv=2)
+        plain = ref.paged_decode_attention_int8_ref(
+            q, kc, vc, ks, vs, clamped, seq)
+    else:
+        out = paged_decode.paged_decode_attention(q, k, v, table, seq,
+                                                  q_per_kv=2)
+        plain = ref.paged_decode_attention_ref(q, k, v, clamped, seq)
+    torch.testing.assert_close(out.float(), plain.float(), atol=_atol(plain),
+                               rtol=0)
+
+
+def test_grouped_wrapper_refuses_ragged_groups(dev):
+    q, k, v, table, seq = _grouped(dev, torch.float32, seed=6, lens=[5, 9],
+                                   g=2, kv=1, hd=16, page=16, width=2)
+    with pytest.raises(ValueError, match="q_per_kv"):
+        paged_decode.paged_decode_attention(q, k, v, table, seq, q_per_kv=3)
+
+
+def test_paged_and_gmm_kernels_are_deterministic(dev):
+    """Two launches on the same inputs give the same bits: K1 and K2 merge
+    their splits in split order whichever CTA arrives last, and K5 sums D
+    in one order."""
+    q, k, v, table, seq = _grouped(dev, torch.bfloat16, seed=7,
+                                   lens=[0, 128, 129, 1000, 77, 513, 1, 64],
+                                   g=2, kv=8, hd=128, page=16, width=64)
+    kc, ks = _quantize_pool_int8(k)
+    vc, vs = _quantize_pool_int8(v)
+    outs = []
+    for _ in range(2):
+        outs.append((
+            paged_decode.paged_decode_attention(q, k, v, table, seq,
+                                                q_per_kv=2),
+            paged_decode.paged_decode_attention_int8(
+                q, kc, vc, ks, vs, table, seq, q_per_kv=2),
+        ))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = _rand(gen, dev, torch.bfloat16, 40, 256, 1536)
+    w = _rand(gen, dev, torch.bfloat16, 40, 1536, 512)
+    xd = _rand(gen, dev, torch.bfloat16, 40, 4, 1536)
+    gm = [(grouped_matmul(x, w), grouped_matmul(xd, w)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(outs[0] + gm[0], outs[1] + gm[1]):
+        assert torch.equal(a, b)
 
 
 def _rand(gen, dev, dtype, *shape):
@@ -351,14 +473,18 @@ def test_gemma3_engine_runs_prefill_and_decode_kernels(dev):
 
 
 GMM_SHAPES = [  # (E, C, D, F): ragged, F not a multiple of 8 (bf16 takes
-    # the CUDA-core kernel), two row blocks, granite's decode gate/up and
+    # the CUDA-core kernel), three row tiles, granite's decode gate/up and
     # down (paged, C 4; dense per-row over 8 slots, C 32), prefills of 32,
-    # 64, 65, 160, 400 and 1024 tokens (C 8, 16, 17, 40, 100, 256): every
-    # row block of the tensor-core kernel (16, 32, 64, 128, 256 rows)
+    # 64, 65, 160, 400 and 1024 tokens (C 8, 16, 17, 40, 100, 256), the
+    # tile edges at granite's widths (C 64 and 128, the 128 x 256 tile in
+    # both orientations), and one row past a 128-row tile with a D that
+    # ends inside a 64-deep chunk and an F that ends inside a column tile
     (3, 5, 72, 40), (2, 3, 10, 13), (2, 300, 64, 48), (40, 4, 1536, 512),
     (40, 4, 512, 1536), (40, 32, 1536, 512), (40, 8, 1536, 512),
     (40, 16, 1536, 512), (40, 17, 1536, 512), (40, 40, 1536, 512),
     (40, 40, 512, 1536), (40, 100, 1536, 512), (40, 256, 1536, 512),
+    (40, 64, 1536, 512), (40, 128, 1536, 512), (40, 128, 512, 1536),
+    (5, 129, 1528, 264),
 ]
 
 

@@ -37,6 +37,7 @@ def test_every_module_is_listed():
         "repro_torch.kernels.decode_attention",
         "repro_torch.kernels.grouped_matmul",
         "repro_torch.kernels.ssd_scan",
+        "repro_torch.kernels.splits",
         "repro_torch.configs.gemma3_1b",
         "repro_torch.configs.granite_moe_3b_a800m",
         "repro_torch.configs.mamba2_2_7b",

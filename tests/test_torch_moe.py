@@ -104,6 +104,54 @@ def test_grouped_matmul_ref_matches_jax(dtype, e, c, d, f):
     np.testing.assert_allclose(_np(got), oracle, atol=atol, rtol=0)
 
 
+#: K5's chunk of D (``kBK`` in ``csrc/grouped_matmul.cu``)
+K5_CHUNK = 64
+
+
+def _blocked_gmm(x, w):
+    """K5's bf16 sum order in plain torch: each output element sums its
+    64-deep chunks of D in order in f32 (each chunk's products summed
+    inside the tensor cores), and the total rounds once to x's dtype."""
+    d = x.shape[2]
+    xf, wf = x.float(), w.float()
+    acc = torch.zeros(x.shape[0], x.shape[1], w.shape[2])
+    for k0 in range(0, d, K5_CHUNK):
+        k = slice(k0, k0 + K5_CHUNK)
+        acc = acc + torch.bmm(xf[:, :, k], wf[:, k])
+    return acc.to(x.dtype)
+
+
+# (E, C, D, F) at narrow widths: a decode capacity, a ragged C, C past
+# one 64-row tile and C over two, with D no multiple of the chunk and F
+# narrower than a 128-column tile (the Pallas kernel takes C, D up to its
+# blocks or multiples of them)
+BLOCKED_GMM = [
+    (2, 4, 488, 40),
+    (3, 37, 456, 24),
+    (2, 100, 200, 48),
+    (1, 256, 136, 8),
+]
+
+
+@pytest.mark.parametrize("e,c,d,f", BLOCKED_GMM)
+def test_blocked_gmm_matches_ref_and_jax(e, c, d, f):
+    rng = np.random.default_rng(e * 1000 + c + d)
+    x = rng.standard_normal((e, c, d)).astype(np.float32)
+    w = (rng.standard_normal((e, d, f)) / math.sqrt(d)).astype(np.float32)
+    jx, jw = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    pallas = np.asarray(jops.grouped_matmul(jx, jw, interpret=True),
+                        np.float32)
+    oracle = np.asarray(jref.grouped_matmul_ref(jx, jw), np.float32)
+    tx, tw = _port(jx), _port(jw)
+    got = _blocked_gmm(tx, tw)
+    assert got.dtype == torch.bfloat16
+    plain = ref.grouped_matmul_ref(tx, tw)
+    atol = _bf16_ulp(oracle)
+    np.testing.assert_allclose(_np(got), _np(plain), atol=atol, rtol=0)
+    np.testing.assert_allclose(_np(got), pallas, atol=atol, rtol=0)
+    np.testing.assert_allclose(_np(got), oracle, atol=atol, rtol=0)
+
+
 def test_grouped_matmul_ops_takes_the_plain_version_on_cpu():
     """On CPU tensors ``ops.grouped_matmul`` is the plain version and the
     kernel's launch count stays where it was."""
