@@ -45,8 +45,8 @@ PORT_KERNELS = {
     "flash_attention": ("flash_kernel",),
     "decode_attention": ("decode_kernel",),
     "grouped_matmul": ("gmm_tma_kernel", "gmm_simple_kernel"),
-    "ssd_scan": ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
-                 "ssd_chunk_output_kernel"),
+    "ssd_scan": ("ssd_chunk_state_kernel", "ssd_tile_output_kernel",
+                 "ssd_one_chunk_kernel"),
 }
 
 
@@ -103,7 +103,8 @@ def main() -> int:
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     # device time of the port's own kernels, by the __global__ names of
-    # their CUDA sources (K6 runs three per launch)
+    # their CUDA sources (K6 runs two per launch past one chunk, one
+    # within it)
     port_us = {
         k: sum(us for n, us in by_name.items() if any(g in n for g in names))
         for k, names in PORT_KERNELS.items()

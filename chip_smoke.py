@@ -27,9 +27,13 @@ Phases, each printing one JSON line (or one per kernel or run):
    of 32, 65, 256, 768 and 1024 tokens, a zamba2 prefill of 1024, a batch
    of 3 and a ragged smoke shape.  Kernel, plain-version and library
    (``scaled_dot_product_attention``, ``torch.bmm``; none computes K6)
-   times (cold L2), the bound from the bytes and operations each call
-   needs, the achieved TFLOP/s and the share of the bound reached; for
-   K1–K5 also the host time of one call;
+   times (``time_ms``: cold, clean L2, and the window enqueued whole
+   before the card reaches it, with the count of late windows), the
+   bound from the bytes and operations each call needs, the achieved
+   TFLOP/s and the share of the bound reached, and the host time of one
+   call; for K6 also the device kernels one call launches, from
+   ``torch.profiler``, whose lines a full run prints after phase 10 (the
+   profiler runs after every serve phase's host times);
 4. ``serve`` — internlm2-1.8b at full width (24 layers, d 2048, hd 128,
    vocab 92,544; random bf16 weights from a seed) served by the port's
    MURS engine over a paged KV pool sized to force suspensions, first
@@ -179,23 +183,87 @@ def nvidia_smi():
 
 
 # ------------------------------------------------------------------ timing
-def time_ms(torch, fn, flush, iters=30):
-    """Median device time of ``fn`` over ``iters`` launches, each after an
-    L2-evicting write (the cache is 50 MB; ``flush`` is larger)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        flush.zero_()
+#: the spin between a window's flush and its start: this many times the
+#: slowest host enqueue of the timed call, plus SPIN_FLOOR_MS
+SPIN_MARGIN = 4
+SPIN_FLOOR_MS = 0.5
+
+
+class Timer:
+    """What ``time_ms`` needs on the card: a 256 MB buffer (five times the
+    50 MB L2), written once here, that each window's flush reads into a
+    one-element sink, so that the flush leaves L2 full of clean lines and
+    no window pays a write-back; the rate of ``torch.cuda._sleep``
+    (cycles per ms), from one calibration timed with events; and the
+    count of late windows so far."""
+
+    def __init__(self, torch, cal_cycles=20_000_000):
+        self.flush = torch.ones(64 * 2**20, dtype=torch.float32, device=DEV)
+        self.sink = torch.empty((), dtype=torch.float32, device=DEV)
+        self.late = 0
+        torch.cuda._sleep(1000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(cal_cycles)
+        end.record()
+        end.synchronize()
+        self.cycles_per_ms = cal_cycles / start.elapsed_time(end)
+
+
+def time_ms(torch, fn, timer, iters=30):
+    """Median device time of ``fn`` over ``iters`` windows.  Before each,
+    the card is idle, then runs the flush (a read of ``timer.flush``) and
+    a spin (``torch.cuda._sleep``) sized to outlast the host's enqueue of
+    ``start.record(); fn(); end.record()``: SPIN_MARGIN times the slowest
+    of five such enqueues timed on the host, plus SPIN_FLOOR_MS.  So the
+    window holds no host latency and no dirty write-back.  An event
+    recorded after the spin must still be pending once the host has
+    enqueued ``end.record()``; a window where it is not is late: it is
+    counted in ``timer.late``, timed again with twice the spin, and never
+    kept."""
+    import gc
+
+    for _ in range(3):
+        fn()
+    enqueue = 0.0
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         start.record()
         fn()
         end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+        enqueue = max(enqueue, time.perf_counter() - t0)
+    spin_ms = SPIN_MARGIN * enqueue * 1e3 + SPIN_FLOOR_MS
+    times = []
+    gc.collect()
+    gc.disable()
+    try:
+        while len(times) < iters:
+            torch.cuda.synchronize()
+            torch.sum(timer.flush, dim=0, out=timer.sink)
+            torch.cuda._sleep(int(spin_ms * timer.cycles_per_ms))
+            spun = torch.cuda.Event()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            spun.record()
+            start.record()
+            fn()
+            end.record()
+            if spun.query():
+                timer.late += 1
+                spin_ms *= 2
+                check(timer.late < 10 * iters, "time_ms: the card keeps "
+                      "finishing the spin before the window is enqueued")
+                continue
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    finally:
+        gc.enable()
+    return statistics.median(times)
 
 
 def host_ms(torch, fn, batches=10, calls=20):
@@ -280,7 +348,7 @@ PAGED_CASES = {
 }
 
 
-def kernel_phase(torch, F, pd, ref, flush):
+def kernel_phase(torch, F, pd, ref, timer):
     """Compare and time both kernels; returns their summary entries."""
     from repro_torch.roofline.analysis import FP32_PEAK_FLOPS, HBM_BW
 
@@ -351,14 +419,15 @@ def kernel_phase(torch, F, pd, ref, flush):
                 mask = (torch.arange(w * page, device=DEV)[None, :]
                         < lens[:, None])[:, None, None, :]
                 q4 = q[:, None, None, :]
+                late = timer.late
                 r = {
-                    "ms": time_ms(torch, lambda: kern(*args), flush),
-                    "plain_ms": time_ms(torch, lambda: plain(*args), flush),
+                    "ms": time_ms(torch, lambda: kern(*args), timer),
+                    "plain_ms": time_ms(torch, lambda: plain(*args), timer),
                     "library_ms": time_ms(
                         torch,
                         lambda: F.scaled_dot_product_attention(
                             q4, kg, vg, attn_mask=mask),
-                        flush,
+                        timer,
                     ),
                     "host_ms": host_ms(torch, lambda: kern(*args)),
                     "bound_ms": 1e3 * max(bytes_s, ops_s),
@@ -367,6 +436,7 @@ def kernel_phase(torch, F, pd, ref, flush):
                     "flops": 4 * hd * tokens,
                     "max_abs_err": err,
                 }
+                r["late_windows"] = timer.late - late
                 emit(with_rates({"phase": "kernel", "name": name,
                                  "case": shape, "q_per_kv": g,
                                  "plan": pd.split_plan(
@@ -438,7 +508,7 @@ def bound(n_bytes, flops, dtype, torch):
                                        else "operations")
 
 
-def attention_kernel_phase(torch, F, ref, flush):
+def attention_kernel_phase(torch, F, ref, timer):
     """K3 and K4 against their plain versions in bf16 (the smoke shapes in
     f32 too) at FLASH_CASES / DECODE_CASES; returns the kernels-line
     entries, from LINE_CASE."""
@@ -483,6 +553,7 @@ def attention_kernel_phase(torch, F, ref, flush):
                                                                  dtype=bool)
             if window:
                 mask = mask & (qpos - kpos < window)
+            late = timer.late
             r = {
                 "phase": "kernel", "name": "flash_attention", "case": name,
                 "shape": {"B": b, "H": h, "KV": kv, "Sq": sq, "Sk": sk,
@@ -491,25 +562,26 @@ def attention_kernel_phase(torch, F, ref, flush):
                 "kept_pairs": pairs, "rows_without_key": empty,
                 "max_abs_err": err, "tolerance_bf16": atol,
                 "ms": time_ms(torch, lambda: flash_attention(q, k, v, **kw),
-                              flush),
+                              timer),
                 "host_ms": host_ms(
                     torch, lambda: flash_attention(q, k, v, **kw)),
                 "plain_ms": time_ms(
                     torch, lambda: ref.flash_attention_ref(q, k, v, **kw),
-                    flush),
+                    timer),
                 "library_ms": time_ms(
                     torch, lambda: F.scaled_dot_product_attention(
-                        q, kr, vr, attn_mask=mask), flush),
+                        q, kr, vr, attn_mask=mask), timer),
                 # the same function without a mask tensor, where SDPA's
                 # causal flag says it all (a square prompt from position 0)
                 "library_causal_ms": time_ms(
                     torch, lambda: F.scaled_dot_product_attention(
-                        q, kr, vr, is_causal=True), flush)
+                        q, kr, vr, is_causal=True), timer)
                 if causal and not window and not q_offset and sq == sk
                 else None,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "bytes": n_bytes, "flops": flops,
             }
+            r["late_windows"] = timer.late - late
             emit(with_rates(r))
             results[("flash_attention", name)] = r
     for name, b, h, kv, s, hd, window, positions in DECODE_CASES:
@@ -545,6 +617,7 @@ def attention_kernel_phase(torch, F, ref, flush):
         mask = mask[:, None, None, :]
         q4 = q[:, :, None, :]
         kr, vr = ref.repeat_kv(k, h // kv), ref.repeat_kv(v, h // kv)
+        late = timer.late
         r = {
             "phase": "kernel", "name": "decode_attention", "case": name,
             "shape": {"B": b, "H": h, "KV": kv, "S": s, "hd": hd,
@@ -552,16 +625,17 @@ def attention_kernel_phase(torch, F, ref, flush):
             "positions": p, "kept_keys": sum(kept),
             "max_abs_err": err, "tolerance_bf16": atol,
             "ms": time_ms(torch, lambda: decode_attention(
-                q, k, v, pos, window=window), flush),
+                q, k, v, pos, window=window), timer),
             "host_ms": host_ms(torch, lambda: decode_attention(
                 q, k, v, pos, window=window)),
             "plain_ms": time_ms(torch, lambda: ref.decode_attention_ref(
-                q, k, v, pos, window=window), flush),
+                q, k, v, pos, window=window), timer),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, kr, vr, attn_mask=mask), flush),
+                q4, kr, vr, attn_mask=mask), timer),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": n_bytes, "flops": flops,
         }
+        r["late_windows"] = timer.late - late
         emit(with_rates(r))
         results[("decode_attention", name)] = r
     return {kernel: {**results[(kernel, case)], "max_abs_err": max(
@@ -621,7 +695,7 @@ def gmm_inputs(torch, gen, dtype, e, c, d, f, x_stride=None):
     return x, w
 
 
-def gmm_kernel_phase(torch, ref, flush, cases):
+def gmm_kernel_phase(torch, ref, timer, cases):
     """K5 against its plain version at ``cases`` in bf16 (f32 too at the
     smoke and decode gate/up shapes); returns its kernels-line entry and
     the set of (E, C, D, F, dtype) it checked."""
@@ -640,19 +714,21 @@ def gmm_kernel_phase(torch, ref, flush, cases):
             n_bytes = (e * c * d + e * d * f + e * c * f) * elem
             flops = 2 * e * c * d * f
             bound_ms, bound_by = bound(n_bytes, flops, dtype, torch)
+            late = timer.late
             r = {
                 "phase": "kernel", "name": "grouped_matmul", "case": name,
                 "dtype": str(dtype).replace("torch.", ""),
                 "shape": {"E": e, "C": c, "D": d, "F": f},
                 "max_abs_err": err, "tolerance": atol,
-                "ms": time_ms(torch, lambda: grouped_matmul(x, w), flush),
+                "ms": time_ms(torch, lambda: grouped_matmul(x, w), timer),
                 "plain_ms": time_ms(
-                    torch, lambda: ref.grouped_matmul_ref(x, w), flush),
-                "library_ms": time_ms(torch, lambda: torch.bmm(x, w), flush),
+                    torch, lambda: ref.grouped_matmul_ref(x, w), timer),
+                "library_ms": time_ms(torch, lambda: torch.bmm(x, w), timer),
                 "host_ms": host_ms(torch, lambda: grouped_matmul(x, w)),
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "bytes": n_bytes, "flops": flops,
             }
+            r["late_windows"] = timer.late - late
             emit(with_rates(r))
             if dtype == torch.bfloat16:
                 max_err = max(max_err, err)
@@ -1415,14 +1491,36 @@ def ssd_work(b, s, nh, hd, ds, chunk):
     return n_bytes, flops
 
 
-def ssd_kernel_phase(torch, ref, flush, cases):
-    """K6 against its plain version in f32 at ``cases``; returns its
-    kernels-line entry and the set of (B, S, nh, hd, ds, chunk) checked.
-    No single PyTorch call computes the scan: library_ms is null."""
+def device_kernels(torch, fn, calls=4):
+    """The device kernels one call of ``fn`` launches, as ``torch.profiler``
+    sees ``calls`` back-to-back calls (warm L2): the count a call, and each
+    kernel's device time a call (us), by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = {}
+    for e in kernels:
+        us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us() / calls
+    return len(kernels) / calls, us
+
+
+def ssd_kernel_phase(torch, ref, timer, cases):
+    """K6 against its plain version in f32 at ``cases``, with the host time
+    of one call; returns its kernels-line entry, the set of (B, S, nh, hd,
+    ds, chunk) checked, and each case's line and call for
+    ``emit_ssd_lines``.  No single PyTorch call computes the scan:
+    library_ms is null."""
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
-    results, max_err, checked = {}, 0.0, set()
+    results, max_err, checked, pending = {}, 0.0, set(), []
     for name, b, s, nh, hd, ds, chunk in cases:
         args = ssd_inputs(torch, gen, b, s, nh, hd, ds)
         err, atol = ssd_check(torch, ref, args, chunk, name)
@@ -1430,22 +1528,36 @@ def ssd_kernel_phase(torch, ref, flush, cases):
         max_err = max(max_err, err)
         n_bytes, flops = ssd_work(b, s, nh, hd, ds, chunk)
         bound_ms, bound_by = bound(n_bytes, flops, torch.float32, torch)
+        late = timer.late
         r = {
             "phase": "kernel", "name": "ssd_scan", "case": name,
             "shape": {"B": b, "S": s, "nh": nh, "hd": hd, "ds": ds,
                       "chunk": chunk},
             "max_abs_err": err, "tolerance": atol,
-            "ms": time_ms(torch, lambda: ssd_scan(*args, chunk), flush),
+            "ms": time_ms(torch, lambda: ssd_scan(*args, chunk), timer),
             "plain_ms": time_ms(
-                torch, lambda: ref.ssd_scan_ref(*args, chunk), flush),
+                torch, lambda: ref.ssd_scan_ref(*args, chunk), timer),
             "library_ms": None,
+            "host_ms": host_ms(torch, lambda: ssd_scan(*args, chunk)),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": n_bytes, "flops": flops,
         }
-        emit(with_rates(r))
+        r["late_windows"] = timer.late - late
         results[name] = r
-    return {"ssd_scan": {**results[SSD_LINE_CASE],
-                         "max_abs_err": max_err}}, checked
+        pending.append((r, lambda a=args, c=chunk: ssd_scan(*a, c)))
+    return ({"ssd_scan": {**results[SSD_LINE_CASE], "max_abs_err": max_err}},
+            checked, pending)
+
+
+def emit_ssd_lines(torch, pending):
+    """Emit K6's ``kernel`` lines, each with the device kernels one call
+    launches and their device time.  A full run calls this after its
+    serve phases, so that ``torch.profiler`` runs after every host time
+    they read."""
+    for r, fn in pending:
+        launched, kernel_us = device_kernels(torch, fn)
+        emit(with_rates({**r, "device_kernels": launched,
+                         "device_kernel_us": kernel_us}))
 
 
 @contextlib.contextmanager
@@ -1663,17 +1775,19 @@ def main(argv=None) -> int:
     m_cfg = ARCHS["granite-moe-3b-a800m"]
     s_cfg, z_cfg = ARCHS["mamba2-2.7b"], ARCHS["zamba2-1.2b"]
     if not only or "kernels" in only:
-        flush = torch.empty(64 * 2**20, dtype=torch.float32, device=DEV)
-        kres = kernel_phase(torch, F, pd, ref, flush)
-        kres.update(attention_kernel_phase(torch, F, ref, flush))
-        gmm, gmm_checked = gmm_kernel_phase(torch, ref, flush,
+        timer = Timer(torch)
+        kres = kernel_phase(torch, F, pd, ref, timer)
+        kres.update(attention_kernel_phase(torch, F, ref, timer))
+        gmm, gmm_checked = gmm_kernel_phase(torch, ref, timer,
                                             gmm_cases(m_cfg))
         kres.update(gmm)
-        ssd, ssd_checked = ssd_kernel_phase(torch, ref, flush,
-                                            ssd_cases(s_cfg, z_cfg))
+        ssd, ssd_checked, ssd_lines = ssd_kernel_phase(
+            torch, ref, timer, ssd_cases(s_cfg, z_cfg))
         kres.update(ssd)
-        del flush
+        del timer
     if only:
+        if "kernels" in only:
+            emit_ssd_lines(torch, ssd_lines)
         if "reference" in only:
             for cfg, phase in ((ARCHS["internlm2-1.8b"], reference_phase),
                                (ARCHS["gemma3-1b"], reference_gemma3)):
@@ -1726,6 +1840,7 @@ def main(argv=None) -> int:
                                   f"reference-{cfg.name}")
         del params
         torch.cuda.empty_cache()
+    emit_ssd_lines(torch, ssd_lines)
 
     replaces = {
         "paged_decode_attention": "src/repro/kernels/paged_decode.py:187",

@@ -55,7 +55,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "launch_grouped_matmul": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
     },
     "ssd_scan": {
-        "launch_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+        "launch_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P],
     },
 }

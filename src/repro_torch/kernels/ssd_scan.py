@@ -1,12 +1,14 @@
 """Wrapper of the CUDA SSD-scan kernel K6 (``csrc/ssd_scan.cu``).
 
 It checks device, dtype, shape and contiguity and raises on anything the
-kernel does not take, allocates the output and the kernel's scratch
-(per-chunk running decays, totals and states) with ``torch.empty``,
-launches on the current stream without synchronising, raises if the
-launch reports an error, and adds one to ``launches`` (one per call,
-though the source runs three ``__global__`` kernels for it).  It takes
-CUDA tensors only: the plain version is
+kernel does not take, allocates the output and, for a scan longer than
+one chunk, the kernel's scratch (per-chunk running decays, totals and
+states, and the chunks' score tiles and C^T tiles, in one buffer) with
+``torch.empty``, launches on the current stream without synchronising,
+raises if the launch reports an error, and adds one to ``launches`` (one
+per call, though the source runs two ``__global__`` kernels for it when
+S > chunk, one otherwise).  It takes CUDA tensors only: the plain
+version is
 :func:`repro_torch.kernels.ref.ssd_scan_ref`, and
 :mod:`repro_torch.kernels.ops` chooses between the two.
 """
@@ -20,6 +22,8 @@ from ._build import raise_on_launch_error
 
 #: the kernel's limits: chunk length, head dim, state dim
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 64, 128
+#: rows and columns of the kernel's square score tiles
+TILE = 64
 
 
 def ssd_scan(
@@ -66,16 +70,28 @@ def ssd_scan(
     nc = -(-s // chunk)
     empty = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((b, s, nh, hd), **empty)
-    seg = torch.empty((b, nh, nc * chunk), **empty)
-    total = torch.empty((b, nh, nc), **empty)
-    state = torch.empty((b, nh, nc, hd, ds), **empty)
+    ptrs = [None] * 5  # one chunk: the kernel reads no scratch
+    if nc > 1:
+        tiles = -(-chunk // TILE)
+        # seg, total, each chunk's outgoing state (d-major), the lower
+        # triangle of each chunk's score tiles and each query tile's C^T,
+        # each at a 256-byte offset
+        sizes = [b * nh * nc * chunk, b * nh * nc, b * nh * nc * ds * hd,
+                 b * nc * tiles * (tiles + 1) // 2 * TILE * TILE,
+                 b * nc * tiles * ds * TILE]
+        sizes = [-(-n // 64) * 64 for n in sizes]
+        scratch = torch.empty(sum(sizes), **empty)
+        base = scratch.data_ptr()
+        for i, n in enumerate(sizes):
+            ptrs[i] = base
+            base += 4 * n
     lib = _build.library("ssd_scan")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.launch_ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            C.data_ptr(), y.data_ptr(), seg.data_ptr(), total.data_ptr(),
-            state.data_ptr(), b, s, nh, hd, ds, chunk, stream,
+            C.data_ptr(), y.data_ptr(), *ptrs, b, s, nh, hd, ds, chunk,
+            stream,
         )
     raise_on_launch_error(err, "ssd_scan")
     ssd_scan.launches += 1

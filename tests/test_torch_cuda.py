@@ -560,12 +560,18 @@ SSD_RTOL = 1e-3  # of max |plain|: see the module docstring
 
 #: (B, S, nh, hd, ds, chunk): chip_smoke.py's kernel phase — mamba2
 #: prefills of 32, 65, 256, 768 and 1024 tokens, zamba2's of 1024, a
-#: batch of 3, and the ragged smoke shape
+#: batch of 3, and the ragged smoke shape; then mamba2's widths at the
+#: edges of a query tile and of a chunk (S 1, 63, 64, 255, 256, 257),
+#: zamba2's at 768, and head counts of 3 and 81
 SSD_SHAPES = [
     (1, 32, 80, 64, 128, 256), (1, 65, 80, 64, 128, 256),
     (1, 256, 80, 64, 128, 256), (1, 768, 80, 64, 128, 256),
     (1, 1024, 80, 64, 128, 256), (1, 1024, 64, 64, 64, 256),
     (3, 300, 80, 64, 128, 256), (1, 45, 3, 16, 8, 32),
+    (1, 1, 80, 64, 128, 256), (1, 63, 80, 64, 128, 256),
+    (1, 64, 80, 64, 128, 256), (1, 255, 80, 64, 128, 256),
+    (1, 257, 80, 64, 128, 256), (1, 768, 64, 64, 64, 256),
+    (1, 300, 3, 64, 128, 256), (2, 600, 81, 64, 128, 256),
 ]
 
 
@@ -594,6 +600,17 @@ def test_ssd_scan_kernel_matches_plain(dev, b, s, nh, hd, ds, chunk):
     assert out.shape == (b, s, nh, hd) and torch.isfinite(out).all()
     atol = SSD_RTOL * plain.abs().max().item()
     torch.testing.assert_close(out, plain, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("s", [65, 600])
+def test_ssd_scan_is_deterministic(dev, s):
+    """Two launches on the same inputs give the same bits (one chunk and
+    three): no float atomics, and every sum in one order."""
+    args = _ssd_inputs(dev, 1, s, 80, 64, 128, seed=s)
+    first = ssd_scan(*args, 256)
+    second = ssd_scan(*args, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_ssd_scan_rows_do_not_see_what_follows(dev):

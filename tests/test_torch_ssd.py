@@ -11,6 +11,13 @@ package.
   the Pallas ``ssd_scan`` in interpret mode where it takes the shape (S a
   multiple of the chunk, or S below one chunk), within 1e-3 too.  S a
   multiple of the chunk, S that is not, S below one chunk, and B > 1.
+* ``_tiled_ssd``, K6's own order of work restated in plain torch (the
+  score tiles C B^T computed once for all heads, each head's decay
+  applied to them after, 64-row query tiles, and a scan of one chunk
+  summing its ``seg`` inside the tile), against the same three within
+  the same tolerances, at ``SCAN_CASES``, at S of 1, Q - 1, Q and Q + 1
+  with two query tiles a chunk, at a chunk that is not a multiple of the
+  tile, and at head counts of 1 and 5.
 * The Mamba-2 block (``mamba2-2.7b.smoke()``: d 64, d_inner 128, 8 heads
   of 16, ds 16, chunk 32) on JAX's parameters: ``_causal_conv``,
   ``mamba_forward`` with and without its cache, ``_final_state`` and
@@ -91,6 +98,138 @@ def test_ssd_scan_ref_matches_jax(case):
         pallas = np.asarray(jops.ssd_scan(*jargs, chunk=chunk,
                                           interpret=True))
         np.testing.assert_allclose(got, pallas, atol=SEQ_TOL, rtol=SEQ_TOL)
+
+
+TILE = 64  # the kernel's query and key tiles
+
+
+def _in_order_seg(w):
+    """Running sums of ``w`` [n, nh] along n, each sum rounded to f32 on
+    its own: the kernel's one-thread sum of dt A."""
+    out = torch.empty_like(w)
+    v = torch.zeros(w.shape[1:])
+    for t in range(w.shape[0]):
+        v = v + w[t]
+        out[t] = v
+    return out
+
+
+def _tiled_ssd(x, dt, A, Bm, C, chunk):
+    """K6's order of work in plain torch, f32.  Past one chunk: pass 1
+    gives each chunk's seg (in order), its outgoing state S_c [nh, ds, hd]
+    and its causal 64 x 64 score tiles C_q B_k^T once for all heads;
+    then, per 64-row query tile and head, the incoming state H_in summed
+    over the earlier chunks in chunk order, C_q H_in scaled by
+    exp(seg_i), and per key tile on or below the
+    diagonal the head's M = scores exp(seg_i - seg_j) dt_j (masked before
+    the exp) times x, where a tile wholly below the diagonal takes the
+    decay as exp(seg_i - p) exp(p - seg_j) with p its last key's seg.
+    One chunk: each query tile sums its own seg up to its last row,
+    computes its own score tiles and takes every decay unfactored."""
+    b, s, nh, hd = x.shape
+    nc = -(-s // chunk)
+    dA = dt * A  # the rounded products the sums take
+    y = torch.empty(b, s, nh, hd)
+    for bi in range(b):
+        segs, states, scores = [], [], {}
+        for c in range(nc):
+            p0, n = c * chunk, min(chunk, s - c * chunk)
+            seg = _in_order_seg(dA[bi, p0:p0 + n])  # [n, nh]
+            segs.append(seg)
+            if nc == 1:
+                break
+            if c < nc - 1:
+                w = torch.exp(seg[-1] - seg) * dt[bi, p0:p0 + n]
+                states.append(torch.einsum(
+                    "td,th,thp->hdp", Bm[bi, p0:p0 + n], w, x[bi, p0:p0 + n]))
+            for q0 in range(0, n, TILE):
+                for k0 in range(0, q0 + 1, TILE):
+                    scores[c, q0, k0] = (
+                        C[bi, p0 + q0:p0 + min(n, q0 + TILE)]
+                        @ Bm[bi, p0 + k0:p0 + min(n, k0 + TILE)].T)
+        h_in, H = [None], torch.zeros(nh, Bm.shape[-1], hd)
+        for c in range(nc - 1):
+            H = torch.exp(segs[c][-1])[:, None, None] * H + states[c]
+            h_in.append(H)
+        for c in range(nc):
+            p0, n = c * chunk, min(chunk, s - c * chunk)
+            for q0 in range(0, n, TILE):
+                rows = min(TILE, n - q0)
+                cq = C[bi, p0 + q0:p0 + q0 + rows]
+                if nc == 1:
+                    seg = _in_order_seg(dA[bi, :q0 + rows])
+                else:
+                    seg = segs[c]
+                segq = seg[q0:q0 + rows]  # [rows, nh]
+                acc = torch.zeros(nh, rows, hd)
+                if c > 0:
+                    acc = (torch.einsum("id,hdp->hip", cq, h_in[c])
+                           * torch.exp(segq).T[:, :, None])
+                for k0 in range(0, q0 + 1, TILE):
+                    keys = min(TILE, n - k0)
+                    sc = (cq @ Bm[bi, k0:k0 + keys].T if nc == 1
+                          else scores[c, q0, k0])
+                    dtk = dt[bi, p0 + k0:p0 + k0 + keys][None]
+                    if nc > 1 and k0 < q0:
+                        p = seg[k0 + keys - 1]
+                        m = (sc[:, :, None] * torch.exp(segq - p)[:, None]
+                             * (torch.exp(p - seg[k0:k0 + keys]) * dtk))
+                    else:
+                        causal = (torch.arange(k0, k0 + keys)[None, :]
+                                  <= torch.arange(q0, q0 + rows)[:, None])
+                        rel = segq[:, None, :] - seg[None, k0:k0 + keys, :]
+                        m = (sc[:, :, None]
+                             * torch.exp(torch.where(causal[:, :, None], rel,
+                                                     -math.inf))
+                             * dtk)
+                    acc = acc + torch.einsum(
+                        "ijh,jhp->hip", m, x[bi, p0 + k0:p0 + k0 + keys])
+                y[bi, p0 + q0:p0 + q0 + rows] = acc.permute(1, 0, 2)
+    return y
+
+
+# (b, s, nh, hd, ds, chunk): SCAN_CASES, then S of 1, Q - 1, Q and Q + 1
+# with two query tiles a chunk, a chunk of 100 (a ragged second tile in
+# every chunk), and one and five heads
+TILED_CASES = {
+    **SCAN_CASES,
+    "s1": (1, 1, 3, 16, 8, 128),
+    "s_q_minus_1": (1, 127, 3, 16, 8, 128),
+    "s_q": (1, 128, 3, 16, 8, 128),
+    "s_q_plus_1": (1, 129, 3, 16, 8, 128),
+    "ragged_tiles": (2, 230, 2, 16, 8, 100),
+    "one_head": (1, 200, 1, 16, 8, 128),
+    "five_heads": (1, 140, 5, 8, 16, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TILED_CASES))
+def test_tiled_order_of_work_matches(case):
+    b, s, nh, hd, ds, chunk = TILED_CASES[case]
+    args = _scan_inputs(sum(map(ord, case)) + 1, b, s, nh, hd, ds)
+    got = _tiled_ssd(*map(torch.from_numpy, args), chunk).numpy()
+    plain = ref.ssd_scan_ref(*map(torch.from_numpy, args), chunk).numpy()
+    scale = float(np.abs(plain).max())
+    np.testing.assert_allclose(got, plain, atol=SCAN_ATOL * scale, rtol=0)
+    jargs = [jnp.asarray(a) for a in args]
+    chunked = np.asarray(jblocks._ssd_scan(*jargs, chunk))
+    np.testing.assert_allclose(got, chunked, atol=SCAN_ATOL * scale, rtol=0)
+    gold = np.asarray(jref.ssd_scan_ref(*jargs))
+    np.testing.assert_allclose(got, gold, atol=SEQ_TOL, rtol=SEQ_TOL)
+    if s % chunk == 0 or s < chunk:
+        pallas = np.asarray(jops.ssd_scan(*jargs, chunk=chunk,
+                                          interpret=True))
+        np.testing.assert_allclose(got, pallas, atol=SEQ_TOL, rtol=SEQ_TOL)
+
+
+def test_tiled_seg_in_the_tile_is_the_chunk_seg():
+    """A one-chunk tile's own sum of seg up to its last row gives the bits
+    that pass 1's sum over the whole chunk gives at those rows."""
+    x, dt, A, _, _ = map(torch.from_numpy, _scan_inputs(4, 1, 200, 3, 8, 8))
+    dA = dt[0] * A
+    whole = _in_order_seg(dA)
+    for end in (1, 64, 128, 200):
+        assert torch.equal(_in_order_seg(dA[:end]), whole[:end])
 
 
 def test_pad_positions_neither_decay_nor_feed_the_state():
