@@ -32,7 +32,7 @@ Phases, each printing one JSON line (or one per kernel or run):
    bound from the bytes and operations each call needs, the achieved
    TFLOP/s and the share of the bound reached, and the host time of one
    call; for K6 also the device kernels one call launches, from
-   ``torch.profiler``, whose lines a full run prints after phase 10 (the
+   ``torch.profiler``, whose lines a full run prints after phase 11 (the
    profiler runs after every serve phase's host times);
 4. ``serve`` — internlm2-1.8b at full width (24 layers, d 2048, hd 128,
    vocab 92,544; random bf16 weights from a seed) served by the port's
@@ -54,7 +54,22 @@ Phases, each printing one JSON line (or one per kernel or run):
    steps through K3/K4 against the same inside ``ops.plain_on_card``;
    logits within LOGIT_ATOL, and each row's argmax equal unless the
    reference's top-2 margin is under two bf16 ulps (a near-tie);
-7. ``serve-granite-moe`` — granite-moe-3b-a800m at full width (32 layers,
+7. ``serve-cluster`` and ``migration-parity`` — the service: a front
+   door (MURS shedding, a token bucket on bulk) over two replicas of
+   full-width internlm2 that share its parameters on the card, each
+   configured as ``serve``'s engine with a pool of its own; a seeded
+   Poisson trace of two tenants (chat and bulk, 3:1); KV checkpoints
+   every CLUSTER_CKPT_EVERY ticks; replica 1 slowed until the straggler
+   pass migrates work off it; replica 0 crashed and restored from its
+   newest checkpoint.  Every submission has one outcome, every admitted
+   request completes, the door sheds and rate-limits, every migration
+   lands, every restore is ``live`` or ``suffix``, each replica's newest
+   checkpoint file reads back bit-equal to its snapshot, K1, K3 and K4
+   run once per layer of each paged tick, ``prefill`` and
+   ``decode_step``, and every count is the CPU rehearsal's
+   (CLUSTER_COUNTS).  Then one request migrated mid-decode keeps the
+   tokens it gets alone on one engine, or flips first at a near-tie;
+8. ``serve-granite-moe`` — granite-moe-3b-a800m at full width (32 layers,
    d 1536, 24 heads, 8 KV heads, hd 64, 40 experts top-8, d_ff_expert
    512, vocab 49,155, tied embeddings) on the paged path under MURS:
    K5 runs three times per layer of every model call (``prefill``,
@@ -62,12 +77,12 @@ Phases, each printing one JSON line (or one per kernel or run):
    theirs; K5 stays at 0 in the internlm2 and gemma3 runs.  Every K5
    shape this run and the next phase launch is held to the plain version
    (the kernel phase's, or checked after the run);
-8. ``reference`` — granite-moe, in f32 and in bf16: a prefill and a
+9. ``reference`` — granite-moe, in f32 and in bf16: a prefill and a
    paged decode step from equal caches through the kernels and inside
    ``ops.plain_on_card``: logits, argmax and the (layer, token) top-k
    expert sets that differ between the two; in bf16 also the plain run
    with every dispatch pinned to the kernel run's gates;
-9. ``serve-mamba2`` and ``serve-zamba2`` — mamba2-2.7b (64 Mamba-2
+10. ``serve-mamba2`` and ``serve-zamba2`` — mamba2-2.7b (64 Mamba-2
    layers, d 2560, 80 heads of 64, ds 128, vocab 50,280) and zamba2-1.2b
    ((mamba ×5, shared_attn) ×6 + mamba ×2, d 2048, ds 64, the shared
    attention 32 heads of 64, vocab 32,000) at full width on the dense
@@ -75,7 +90,7 @@ Phases, each printing one JSON line (or one per kernel or run):
    K6 once per Mamba layer of every ``prefill``, zamba2's shared
    attention K3 per ``prefill`` and K4 per ``decode_step``; K1, K2 and K5
    never.  Every K6 shape they launch is held to the plain version;
-10. ``reference`` — mamba2 and zamba2, in f32 and in bf16: a 1024- and a
+11. ``reference`` — mamba2 and zamba2, in f32 and in bf16: a 1024- and a
    777-token prefill and 8 decode steps through the kernels and inside
    ``ops.plain_on_card``: logits and argmax.
 
@@ -151,6 +166,34 @@ SSD_RTOL = 1e-3
 #: layer (64 for mamba2); set from the first readings (0.031-0.054 on
 #: an H100), with about twice their room
 SSM_BF16_LOGIT_ATOL = 0.125
+#: serve-cluster: a front door over two replicas of full-width internlm2
+#: that share one params tree on the card.  Every value below comes from
+#: a CPU rehearsal of the same schedule at the same byte model (pools and
+#: budgets in pages, the full model's tick costs)
+CLUSTER_POOL_PAGES = 48  # each replica's pool
+CLUSTER_REQUESTS = 40
+CLUSTER_VOCAB = 500  # token ids of the trace
+CLUSTER_RATE = 0.4  # Poisson arrivals per cluster tick
+CLUSTER_PRESSURE = 0.9  # the door sheds above this projected / capacity
+CLUSTER_BULK_BUCKET = (0.05, 2.0)  # bulk's token bucket: per tick, burst
+CLUSTER_CKPT_EVERY = 16  # ticks between KV checkpoints
+#: pages a checkpoint holds (shared prefix first): a full-width page is
+#: 3.1 MB of f32 payload, and zlib, the codec where zstandard is absent,
+#: writes a few MB/s of it
+CLUSTER_CKPT_PAGES = 2
+#: replica 1 runs CLUSTER_SLOW[1] times slower from tick CLUSTER_SLOW[0]
+#: to tick CLUSTER_SLOW[2]; replica 0 crashes at CLUSTER_CRASH_TICK
+CLUSTER_SLOW = (24, 4.0, 96)
+CLUSTER_CRASH_TICK = 72
+#: the counts the CPU rehearsal gave; the card's run must give the same
+CLUSTER_COUNTS = {
+    "admitted": 35, "shed": 1, "rate_limited": 4, "completed": 35,
+    "ticks": 204, "suspensions": 23, "straggler_flags": 9, "migrations": 17,
+    "checkpoints": 22, "restored": 1, "restore_outcomes": {"suffix": 1},
+    "requeued": 16, "paged_decode_ticks": 303,
+    "model_calls": {"prefill": 48, "decode_step": 565,
+                    "decode_step_paged": 303},
+}
 
 
 class CheckFailed(Exception):
@@ -1717,6 +1760,320 @@ def reference_ssm(torch, cfg, params, ops, prompts=(1024, 777), steps=8):
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------- serve-cluster
+# ----------------------------------------------------------- serve-cluster
+def cluster_tenants(TenantProfile):
+    """chat: weight 3, prompts 16–48 tokens, 16–32 new; bulk: weight 1,
+    prompts 48–64, 48–96 new.  Every prompt fits one 64-token prefill
+    chunk.  Token ids 1–CLUSTER_VOCAB: the trace's random draws depend on
+    the vocabulary, and a rehearsal at smoke width must draw this one."""
+    return (
+        TenantProfile("chat", weight=3.0, prompt_tokens=(16, 48),
+                      output_tokens=(16, 32), vocab=CLUSTER_VOCAB),
+        TenantProfile("bulk", weight=1.0, prompt_tokens=(48, 64),
+                      output_tokens=(48, 96), vocab=CLUSTER_VOCAB),
+    )
+
+
+def cluster_engine(cfg, pages, device):
+    """One replica's engine config, as ``serve_engine``'s: MURS, 8 slots,
+    max_seq 1024, page 16, prefix cache on, paged decode."""
+    from repro_torch.sched import MursConfig, MursPolicy
+    from repro_torch.serve import EngineConfig
+
+    return EngineConfig(
+        n_slots=N_SLOTS, max_seq=MAX_SEQ,
+        hbm_capacity_bytes=cfg.kv_bytes_per_token() * PAGE * pages,
+        policy=MursPolicy(MursConfig.for_serving(period=1.0)),
+        prefix_cache=True, device=device,
+    )
+
+
+class CheckpointLog:
+    """Wraps a cluster's ``_write_checkpoint``: times each write, sums
+    its modeled and on-disk bytes, and keeps each replica's newest
+    snapshot to hold its file against."""
+
+    def __init__(self, cl):
+        self.seconds, self.count, self.file_bytes = 0.0, 0, 0
+        self.raw_bytes, self.stored_bytes = 0.0, 0.0
+        self.newest = {}
+        write = cl._write_checkpoint
+
+        def timed(replica, snap):
+            t0 = time.perf_counter()
+            write(replica, snap)
+            self.seconds += time.perf_counter() - t0
+            self.count += 1
+            self.raw_bytes += snap["raw_bytes"]
+            self.stored_bytes += snap["stored_bytes"]
+            path = Path(cl._ckpt_dir(replica)) / f"ckpt_{cl.tick}.ckpt"
+            self.file_bytes += path.stat().st_size
+            self.newest[replica] = (path, snap)
+
+        cl._write_checkpoint = timed
+
+
+def check_checkpoint_file(path, snap, what):
+    """Read a checkpoint back with the port's ``restore_leaves`` and
+    codec: its manifest must be the snapshot's and every page payload
+    bit-equal to the snapshot's, in manifest order."""
+    from repro_torch.checkpoint import _msgpack, restore_leaves
+
+    leaves, _ = restore_leaves(str(path))
+    manifest = _msgpack.unpackb(leaves[0].tobytes())
+    want = [{"rid": e["rid"], "pos": int(e["pos"]),
+             "generated": [int(t) for t in e["generated"]],
+             "pages": sorted(e["pages"])} for e in snap["reqs"]]
+    check(manifest["reqs"] == want, f"{what}: manifest differs")
+    payloads = [np.asarray(e["pages"][j]) for e in snap["reqs"]
+                for j in sorted(e["pages"])]
+    check(len(leaves) == 1 + len(payloads), f"{what}: leaf count")
+    for got, ref in zip(leaves[1:], payloads):
+        check(got.dtype == ref.dtype and got.shape == ref.shape
+              and got.tobytes() == ref.tobytes(),
+              f"{what}: a page payload differs from the snapshot")
+    return len(payloads)
+
+
+def serve_cluster(torch, cfg, params, ops, calls, smi):
+    """The service: a front door (MURS shedding, a token bucket on bulk)
+    over two replicas of ``cfg`` sharing ``params``, a seeded Poisson
+    trace of chat and bulk, KV checkpoints every CLUSTER_CKPT_EVERY
+    ticks, replica 1 slowed until the straggler pass migrates work off
+    it, and replica 0 crashed and restored from its newest checkpoint.
+    Launch and call counters are zeroed just before the run and read
+    just after."""
+    import gc
+    import shutil
+    import tempfile
+    from collections import deque
+
+    from repro_torch.sched import MursConfig, MursPolicy
+    from repro_torch.serve import (
+        ClusterConfig, FrontDoor, FrontDoorConfig, ServingCluster,
+        TenantProfile, poisson_trace,
+    )
+
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="cluster_ckpt_", dir=scratch)
+    cl = ServingCluster(cfg, params, ClusterConfig(
+        engine=lambda: cluster_engine(cfg, CLUSTER_POOL_PAGES, DEV),
+        n_replicas=2, router=MursPolicy(MursConfig.for_serving()),
+        checkpoint_every_ticks=CLUSTER_CKPT_EVERY, checkpoint_dir=ckpt_dir,
+        checkpoint_page_budget=CLUSTER_CKPT_PAGES,
+    ))
+    door = FrontDoor(cl, FrontDoorConfig(
+        pressure_threshold=CLUSTER_PRESSURE,
+        buckets={"bulk": CLUSTER_BULK_BUCKET}))
+    check(door.policy is cl.router, "serve-cluster: the door must shed "
+          "with the cluster's MURS router")
+    trace = deque(poisson_trace(
+        cluster_tenants(TenantProfile), rate_per_tick=CLUSTER_RATE,
+        n_requests=CLUSTER_REQUESTS, seed=SEED))
+    ckpt = CheckpointLog(cl)
+    done, dead = {}, {"paged_decode_ticks": 0, "suspensions": 0}
+    mem = {}
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()  # the main path's counts start here
+    calls.update(dict.fromkeys(calls, 0))
+    t0 = time.perf_counter()
+    while (trace or cl.has_pending) and cl.tick < 2000:
+        while trace and trace[0].tick <= cl.tick:
+            door.submit(trace.popleft().request)
+        if cl.tick == CLUSTER_SLOW[0]:
+            cl.set_slowdown(1, CLUSTER_SLOW[1])
+        if cl.tick == CLUSTER_SLOW[2]:
+            cl.set_slowdown(1, 1.0)
+        if cl.tick == CLUSTER_CRASH_TICK:
+            check(ckpt.newest.get(0) is not None,
+                  "serve-cluster: no checkpoint of replica 0 before its crash")
+            eng = cl.replicas[0]
+            dead["paged_decode_ticks"] += eng.paged_decode_ticks
+            dead["suspensions"] += eng.suspensions
+            del eng
+            torch.cuda.synchronize()
+            mem["allocated_before_crash_gib"] = (
+                torch.cuda.memory_allocated() / 2**30)
+            mem["max_allocated_before_crash_gib"] = (
+                torch.cuda.max_memory_allocated() / 2**30)
+            cl.crash_replica(0)
+            gc.collect()
+            torch.cuda.synchronize()
+            mem["allocated_after_crash_gib"] = (
+                torch.cuda.memory_allocated() / 2**30)
+            mem["max_allocated_after_crash_gib"] = (
+                torch.cuda.max_memory_allocated() / 2**30)
+        door.step()
+        for eng in cl.replicas:
+            for rid, r in eng.requests.items():
+                if r.state == "done" and rid not in done:
+                    done[rid] = (list(r.generated), r.max_new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    model_calls = dict(calls)
+    rep = door.run(max_ticks=cl.tick)
+    x = rep.extras
+    paged_ticks = dead["paged_decode_ticks"] + sum(
+        eng.paged_decode_ticks for eng in cl.replicas)
+    suspensions = dead["suspensions"] + sum(
+        eng.suspensions for eng in cl.replicas)
+    counts = {
+        "admitted": x["admitted"], "shed": x["shed"],
+        "rate_limited": x["rate_limited"], "completed": rep.completed,
+        "ticks": cl.tick, "suspensions": suspensions,
+        "straggler_flags": x["straggler_flags"],
+        "migrations": x["migrations"]["completed"],
+        "checkpoints": x["checkpoint"]["saved"],
+        "restored": x["checkpoint"]["restored_requests"],
+        "restore_outcomes": x["checkpoint"]["outcomes"],
+        "requeued": x["requeued"], "paged_decode_ticks": paged_ticks,
+        "model_calls": model_calls,
+    }
+    checked_pages = {}
+    for replica, (path, snap) in sorted(ckpt.newest.items()):
+        checked_pages[replica] = check_checkpoint_file(
+            path, snap, f"serve-cluster checkpoint of replica {replica}")
+    shutil.rmtree(ckpt_dir)
+    out = {
+        "phase": "serve-cluster", "arch": cfg.name, "replicas": 2,
+        "counts": counts, "wall_s": wall,
+        "tokens_generated": rep.tokens_generated,
+        "tokens_per_s": rep.tokens_generated / wall,
+        "submitted": rep.submitted, "lost": x["lost"],
+        "failed": rep.failed,
+        "in_flight_unfinished": x["in_flight_unfinished"],
+        "shed_by_tenant": x["shed_by_tenant"],
+        "migration_raw_bytes": x["migrations"]["raw_bytes"],
+        "migration_wire_bytes": x["migrations"]["wire_bytes"],
+        "checkpoint_raw_bytes": ckpt.raw_bytes,
+        "checkpoint_stored_bytes_modeled": ckpt.stored_bytes,
+        "checkpoint_file_bytes": ckpt.file_bytes,
+        "checkpoint_write_s": ckpt.seconds,
+        "checkpoint_count": ckpt.count,
+        "checkpoint_pages_read_back": checked_pages,
+        "restored_tokens": x["checkpoint"]["restored_tokens"],
+        "replayed_tokens": x["checkpoint"]["replayed_tokens"],
+        "from_zero_tokens": x["checkpoint"]["from_zero_tokens"],
+        "memory": mem, "launches": launches,
+        "pool_pages": CLUSTER_POOL_PAGES, "nvidia_smi": smi,
+    }
+    emit(out)
+    # every submission ends in exactly one outcome row
+    rids = [o.request_id for o in rep.outcomes]
+    check(len(rids) == len(set(rids)) == rep.submitted == CLUSTER_REQUESTS,
+          f"serve-cluster: {len(rids)} outcome rows for {rep.submitted} "
+          f"submissions")
+    check(x["admitted"] + x["shed"] + x["rate_limited"] == rep.submitted,
+          "serve-cluster: admitted + shed + rate-limited != submitted")
+    check(x["shed"] >= 1, "serve-cluster: the door shed nothing")
+    check(x["rate_limited"] >= 1, "serve-cluster: no request rate-limited")
+    check(rep.completed == x["admitted"] and rep.failed == 0
+          and x["lost"] == 0 and x["in_flight_unfinished"] == 0,
+          f"serve-cluster: {rep.completed}/{x['admitted']} admitted "
+          f"completed, {rep.failed} failed, {x['lost']} lost")
+    check(sorted(done) == sorted(cl.completed),
+          "serve-cluster: completions seen on the replicas differ")
+    for rid, (toks, want) in done.items():
+        check(len(toks) == want and all(0 <= t < cfg.vocab for t in toks),
+              f"serve-cluster: {rid} produced malformed tokens")
+    for rid in cl._home:
+        check(sum(rid in eng.requests for eng in cl.replicas) <= 1,
+              f"serve-cluster: {rid} lives on two replicas")
+    check(suspensions >= 1, "serve-cluster: no suspension on a replica")
+    check(x["straggler_flags"] >= 1, "serve-cluster: no straggler flag")
+    m = x["migrations"]
+    check(m["started"] == m["completed"] >= 1,
+          f"serve-cluster: migrations {m['started']} started, "
+          f"{m['completed']} completed")
+    ck = x["checkpoint"]
+    check(ck["saved"] >= 1 and ck["restored_requests"] >= 1,
+          "serve-cluster: no checkpoint saved or no request restored")
+    check(set(ck["outcomes"]) <= {"live", "suffix"},
+          f"serve-cluster: restore outcomes {ck['outcomes']}")
+    # a quarter of one engine's slot caches (N_SLOTS × MAX_SEQ tokens):
+    # the crashed engine's must have gone with it
+    slack_gib = 0.25 * N_SLOTS * MAX_SEQ * cfg.kv_bytes_per_token() / 2**30
+    check(mem["allocated_after_crash_gib"]
+          <= mem["allocated_before_crash_gib"] + slack_gib,
+          "serve-cluster: the crashed engine's caches were not released")
+    # K1 once per layer of every paged decode tick, K3 of every prefill,
+    # K4 of every decode_step; K2, K5 and K6 never
+    check(model_calls["decode_step_paged"] == paged_ticks,
+          "serve-cluster: decode_step_paged calls != paged decode ticks")
+    for name, n in (("paged_decode_attention", paged_ticks),
+                    ("flash_attention", model_calls["prefill"]),
+                    ("decode_attention", model_calls["decode_step"])):
+        check(launches[name] == cfg.n_layers * n,
+              f"serve-cluster: {name} {launches[name]} launches != "
+              f"{cfg.n_layers} layers x {n}")
+    for name in ("paged_decode_attention_int8", "grouped_matmul",
+                 "ssd_scan"):
+        check(launches[name] == 0, f"serve-cluster: {name} launched")
+    check(counts == CLUSTER_COUNTS,
+          f"serve-cluster: counts {counts} differ from the rehearsal's "
+          f"{CLUSTER_COUNTS}")
+    return out
+
+
+def migration_parity(torch, cfg, params, ops):
+    """One 48-token request with 32 new tokens, migrated off its home on
+    a 2-replica cluster after 8 tokens, against the same request alone
+    on one engine (a batch of one on both sides): the tokens must be
+    equal, or the first flip a near-tie of the unmigrated run's logits."""
+    from repro_torch.models import prefill
+    from repro_torch.serve import (
+        ClusterConfig, Request, ServingCluster, ServingEngine,
+    )
+
+    prompt = np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab, 48).tolist()
+    pages = (len(prompt) + 32) // PAGE + 2
+
+    ref = ServingEngine(cfg, params, cluster_engine(cfg, pages, DEV))
+    ref.submit(Request("m", "T", list(prompt), 32))
+    ref.run(max_ticks=200)
+    # the straggler pass stays off: against an idle replica, the one
+    # serving the request always reads slow and would pull it back
+    cl = ServingCluster(cfg, params, ClusterConfig(
+        engine=lambda: cluster_engine(cfg, pages, DEV), n_replicas=2,
+        straggler_min_samples=10**9))
+    cl.submit(Request("m", "T", list(prompt), 32))
+    while cl.tick < 200:
+        cl.step()
+        src = cl._home["m"]
+        if len(cl.replicas[src].requests["m"].generated) >= 8:
+            break
+    check(cl.migrate("m", src), "migration-parity: the export failed")
+    out = cl.run(max_ticks=300).extras
+    tgt = cl._home["m"]
+    got = cl.replicas[tgt].requests["m"].generated
+    gold = ref.requests["m"].generated
+    line = {"phase": "migration-parity", "arch": cfg.name, "source": src,
+            "target": tgt, "migrated_at_token": 8,
+            "migrations": out["migrations"], "tokens_equal": got == gold}
+    if got != gold:
+        k = next(i for i, (a, b) in enumerate(zip(got, gold)) if a != b)
+        toks = torch.as_tensor([prompt + gold[:k]], device=DEV)
+        with unmoved_counters(ops, "migration-parity"):
+            logits, _ = prefill(cfg, params, toks, max_seq=MAX_SEQ)
+        row = logits[0, -1:].float()
+        _, margins, ties = argmax_margins(row, row)
+        line.update({"first_flip": k, "top2_margin": margins[0],
+                     "near_tie_limit": ties[0]})
+    emit(line)
+    if got != gold:
+        check_argmax([False], [line["top2_margin"]],
+                     [line["near_tie_limit"]], "migration-parity first flip")
+    check(tgt != src and out["migrations"]["completed"] == 1,
+          "migration-parity: the request did not migrate")
+    check(len(got) == 32, "migration-parity: the request did not finish")
+    return line
+
+
 def _map_tensors(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tensors(v, fn) for k, v in tree.items()}
@@ -1810,6 +2167,8 @@ def main(argv=None) -> int:
     check(f32["launches"]["decode_attention"] > 0,
           "serve: no chunked-prefill continuation through K4")
     reference_phase(torch, cfg, params, ops)
+    cluster = serve_cluster(torch, cfg, params, ops, calls, smi)
+    migration_parity(torch, cfg, params, ops)
     del params
     torch.cuda.empty_cache()
 
@@ -1859,9 +2218,9 @@ def main(argv=None) -> int:
         "grouped_matmul": "grouped_matmul.cu",
         "ssd_scan": "ssd_scan.cu",
     }
-    # launches on the main path: the sum over the six serving runs, each
-    # counted from zero
-    runs = (f32, i8, g3, moe, *ssm_runs)
+    # launches on the main path: the sum over the seven serving runs,
+    # each counted from zero
+    runs = (f32, i8, cluster, g3, moe, *ssm_runs)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{source[name]}",

@@ -62,7 +62,7 @@ prefixes evict under pressure in LRU order crossed with the policy's
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,24 +94,7 @@ from repro_torch.serve.report import (
     ServeReport,
 )
 from repro_torch.serve.tiers import TierConfig, wire_bytes_for
-
-
-def _leaves(tree: Any) -> List[torch.Tensor]:
-    """Tensor leaves in ``jax.tree_util.tree_leaves`` order: dict keys
-    sorted (``b10`` before ``b2``), lists and tuples in order."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for t in tree for x in _leaves(t)]
-    return [tree]
-
-
-def _tree_map(fn: Callable, tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, t) for t in tree)
-    return fn(tree)
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclass
@@ -562,10 +545,10 @@ class ServingEngine:
         view of the engine's, written in place.  Returns the last token's
         logits."""
         sub = {
-            "unit": _tree_map(
+            "unit": tree_map(
                 lambda x: x[:, slot:slot + 1], self._caches["unit"]
             ),
-            "suffix": _tree_map(
+            "suffix": tree_map(
                 lambda x: x[slot:slot + 1], self._caches["suffix"]
             ),
         }
@@ -785,6 +768,15 @@ class ServingEngine:
         self.kv.reclaim()
         self._update_pool()
         self.migrations_out += 1
+        if req.state in ("prefill", "decoding"):
+            # a running request left, as if it had finished: resume the
+            # policy's FIFO head as _finish does.  MURS resumes one
+            # suspended request per completion, so without this a replica
+            # whose last running request migrates away never resumes its
+            # suspended ones (the JAX engine's export strands them)
+            rid = self.policy.on_task_complete(request_id)
+            if rid is not None:
+                self._resume(rid)
         return ticket
 
     def _export_delta(
@@ -1464,10 +1456,10 @@ class ServingEngine:
         """Copy one slot's cache subtree (the KV snapshot a cached prefix
         is installed from)."""
         return {
-            "unit": _tree_map(
+            "unit": tree_map(
                 lambda x: x[:, slot].clone(), self._caches["unit"]
             ),
-            "suffix": _tree_map(
+            "suffix": tree_map(
                 lambda x: x[slot].clone(), self._caches["suffix"]
             ),
         }
@@ -1475,10 +1467,12 @@ class ServingEngine:
     def _install_slot(self, slot: int, sub: Dict[str, Any]) -> None:
         """Write a snapshot subtree into ``slot`` of the batched caches,
         in place."""
-        for s, o in zip(_leaves(self._caches["unit"]), _leaves(sub["unit"])):
+        for s, o in zip(
+            tree_leaves(self._caches["unit"]), tree_leaves(sub["unit"])
+        ):
             s[:, slot].copy_(o)
         for s, o in zip(
-            _leaves(self._caches["suffix"]), _leaves(sub["suffix"])
+            tree_leaves(self._caches["suffix"]), tree_leaves(sub["suffix"])
         ):
             s[slot].copy_(o)
 
@@ -1514,11 +1508,11 @@ class ServingEngine:
         if a >= b:
             return None
         parts = []
-        for leaf in _leaves(self._caches["unit"]):
+        for leaf in tree_leaves(self._caches["unit"]):
             x = leaf[:, slot]
             if self._seq_leaf(x):
                 parts.append(x[..., a:b, :].float().reshape(-1))
-        for leaf in _leaves(self._caches["suffix"]):
+        for leaf in tree_leaves(self._caches["suffix"]):
             x = leaf[slot]
             if self._seq_leaf(x):
                 parts.append(x[..., a:b, :].float().reshape(-1))
@@ -1539,8 +1533,10 @@ class ServingEngine:
             self.device
         )
         off = 0
-        views = [leaf[:, slot] for leaf in _leaves(self._caches["unit"])]
-        views += [leaf[slot] for leaf in _leaves(self._caches["suffix"])]
+        views = [
+            leaf[:, slot] for leaf in tree_leaves(self._caches["unit"])
+        ]
+        views += [leaf[slot] for leaf in tree_leaves(self._caches["suffix"])]
         for x in views:
             if not self._seq_leaf(x):
                 continue
@@ -1573,10 +1569,12 @@ class ServingEngine:
         # rows of the slot's tail, as the JAX engine's broadcasting
         # ``.at[].set`` does
         slot = req.slot
-        for s, o in zip(_leaves(self._caches["unit"]), _leaves(caches["unit"])):
+        for s, o in zip(
+            tree_leaves(self._caches["unit"]), tree_leaves(caches["unit"])
+        ):
             s[:, slot].copy_(o[:, 0])
         for s, o in zip(
-            _leaves(self._caches["suffix"]), _leaves(caches["suffix"])
+            tree_leaves(self._caches["suffix"]), tree_leaves(caches["suffix"])
         ):
             s[slot].copy_(o[0])
         req.pos = len(tokens)

@@ -1,0 +1,72 @@
+"""Nested dicts, lists and tuples of tensors, in the JAX package's leaf order.
+
+``jax.tree_util`` visits a dict's keys sorted (``b10`` before ``b2``),
+lists and tuples in order, and gives ``None`` no leaf.  The engine's
+page payloads and the checkpoint files both depend on that order, so
+every flatten in the port goes through these helpers
+(``torch.utils._pytree`` keeps dicts in insertion order).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+__all__ = ["tree_flatten", "tree_leaves", "tree_map", "tree_unflatten"]
+
+#: the structure :func:`tree_flatten` returns: ``"*"`` for a leaf,
+#: ``None`` for ``None``, ``(dict, keys, children)`` and
+#: ``(list | tuple, children)`` for containers
+TreeDef = Any
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of ``tree``, in ``jax.tree_util.tree_leaves`` order."""
+    return tree_flatten(tree)[0]
+
+
+def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
+    """``(leaves, treedef)``, as ``jax.tree_util.tree_flatten`` orders
+    them; :func:`tree_unflatten` inverts it."""
+    leaves: List[Any] = []
+
+    def walk(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            keys = sorted(x)
+            return (dict, keys, [walk(x[k]) for k in keys])
+        if isinstance(x, (list, tuple)):
+            return (type(x), [walk(t) for t in x])
+        leaves.append(x)
+        return "*"
+
+    treedef = walk(tree)
+    return leaves, treedef
+
+
+def tree_unflatten(treedef: TreeDef, leaves: List[Any]) -> Any:
+    """Rebuild the structure ``treedef`` describes from ``leaves``."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return None
+        if d == "*":
+            return next(it)
+        if d[0] is dict:
+            return {k: build(c) for k, c in zip(d[1], d[2])}
+        return d[0](build(c) for c in d[1])
+
+    return build(treedef)
+
+
+def tree_map(fn: Callable, tree: Any) -> Any:
+    """``fn`` applied to every leaf; containers keep their type (and a
+    dict its key order), ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t) for t in tree)
+    return fn(tree)

@@ -687,3 +687,54 @@ def test_ssm_engine_runs_the_ssd_kernel(dev, name):
     assert decode_attention.launches == n_shared * calls["decode_step"]
     assert paged_decode.paged_decode_attention.launches == 0
     assert eng.paged_decode_ticks == 0
+
+
+def test_cluster_migrates_and_restores_from_a_checkpoint(dev, tmp_path):
+    """A smoke-width 2-replica cluster on the card: a request migrates
+    off its home mid-decode and finishes with the tokens it gets alone on
+    one engine (a batch of one on both sides), then a second request's
+    replica crashes and the request restores from its newest KV
+    checkpoint (``live`` or ``suffix``) and completes."""
+    from repro_torch.serve import ClusterConfig, ServingCluster
+
+    cfg = ARCHS["internlm2-1.8b"].smoke()
+    params = init_model(cfg, 0, device=dev)
+
+    def make():
+        return EngineConfig(
+            n_slots=2, max_seq=64,
+            hbm_capacity_bytes=cfg.kv_bytes_per_token() * 200,
+            policy=MursPolicy(MursConfig.for_serving(period=1.0)),
+            device=str(dev))
+
+    ref = ServingEngine(cfg, params, make())
+    ref.submit(Request("m", "T", list(range(10, 18)), 16))
+    ref.run(max_ticks=200)
+    # the straggler pass stays off: against an idle replica, the busy one
+    # always reads slow and would pull the request back
+    cl = ServingCluster(cfg, params, ClusterConfig(
+        engine=make, n_replicas=2, straggler_min_samples=10**9,
+        checkpoint_every_ticks=4, checkpoint_dir=str(tmp_path)))
+    cl.submit(Request("m", "T", list(range(10, 18)), 16))
+    for _ in range(6):
+        cl.step()
+    src = cl._home["m"]
+    assert cl.migrate("m", src)
+    while cl.has_pending:
+        cl.step()
+    assert cl._home["m"] != src
+    assert cl.replicas[cl._home["m"]].requests["m"].generated == \
+        ref.requests["m"].generated
+    cl.submit(Request("c", "T", list(range(20, 40)), 24))
+    saved = cl.ckpt_saved
+    while cl.ckpt_saved == saved or cl.tick % 4 != 3:
+        cl.step()  # a checkpoint holds c, and c decoded past it
+    cl.crash_replica(cl._home["c"])
+    out = cl.run(max_ticks=300).extras
+    assert sorted(cl.completed) == ["c", "m"] and out["failed"] == 0
+    assert out["migrations"]["completed"] == 1
+    assert out["checkpoint"]["restored_requests"] == 1
+    assert set(out["checkpoint"]["outcomes"]) <= {"live", "suffix"}
+    c = cl.replicas[cl._home["c"]].requests["c"]
+    assert len(c.generated) == 24 and all(0 <= t < cfg.vocab
+                                          for t in c.generated)

@@ -1,9 +1,13 @@
-"""The port stands alone: no JAX and no module of the JAX package.
+"""The port stands alone: no JAX, no module of the JAX package, and no
+``msgpack`` (the machine with the card has none; the port packs with its
+own codec).
 
-In a fresh interpreter with ``jax`` blocked, every ``repro_torch`` module
-is imported and two small engines (internlm2 and zamba2) run on the CPU — some imports
-happen lazily at call time, so the run is part of the check — and then no
-``repro`` module may be loaded.
+In a fresh interpreter with ``jax`` and ``msgpack`` blocked, every
+``repro_torch`` module is imported, two small engines (internlm2 and
+zamba2) run on the CPU, and a front door over a two-replica cluster
+serves a short trace while writing a KV checkpoint, crashing a replica
+and restoring it — some imports happen lazily at call time, so the run
+is part of the check — and then no ``repro`` module may be loaded.
 """
 
 import os
@@ -45,6 +49,15 @@ def test_every_module_is_listed():
         "repro_torch.models.transformer",
         "repro_torch.serve.engine",
         "repro_torch.launch.serve",
+        "repro_torch.sched.priority",
+        "repro_torch.serve.traffic",
+        "repro_torch.serve.frontdoor",
+        "repro_torch.serve.cluster",
+        "repro_torch.checkpoint",
+        "repro_torch.checkpoint.checkpointing",
+        "repro_torch.checkpoint._msgpack",
+        "repro_torch.dist.fault",
+        "repro_torch.tree",
     ):
         assert expected in names
 
@@ -54,6 +67,7 @@ def test_port_imports_and_serves_without_jax_or_repro():
         f"""
         import importlib, sys
         sys.modules["jax"] = None  # any import of jax now raises
+        sys.modules["msgpack"] = None  # and of msgpack
         sys.path.insert(0, {SRC!r})
         for name in {_port_modules()!r}:
             importlib.import_module(name)
@@ -83,9 +97,36 @@ def test_port_imports_and_serves_without_jax_or_repro():
         )
         eng.submit(Request("z0", "A", list(range(5, 40)), 3))
         assert eng.run(max_ticks=50).completed == 1
+        # the front door over a cluster that checkpoints, crashes, restores
+        import tempfile
+        from repro_torch.serve import (
+            ClusterConfig, FrontDoor, FrontDoorConfig, ServingCluster,
+            TenantProfile, poisson_trace,
+        )
+        cfg = ARCHS["internlm2-1.8b"].smoke()
+        params = init_model(cfg, 0, device="cpu")
+        with tempfile.TemporaryDirectory() as d:
+            cl = ServingCluster(cfg, params, ClusterConfig(
+                engine=lambda: EngineConfig(
+                    n_slots=2, max_seq=64, hbm_capacity_bytes=1e9,
+                    device="cpu"),
+                checkpoint_every_ticks=3, checkpoint_dir=d))
+            door = FrontDoor(cl, FrontDoorConfig(buckets={{"b": (0.0, 1.0)}}))
+            for a in poisson_trace([TenantProfile("a"), TenantProfile("b")],
+                                   rate_per_tick=1.0, n_requests=8, seed=0):
+                door.submit(a.request)
+            for _ in range(4):
+                door.step()
+            assert cl.ckpt_saved >= 1
+            cl.crash_replica(0)
+            rep = door.run(max_ticks=200)
+        assert rep.completed == rep.extras["admitted"] >= 1
+        assert rep.extras["rate_limited"] >= 1
+        assert cl.ckpt_restored_requests >= 1
         bad = sorted(m for m in sys.modules
                      if m == "repro" or m.startswith("repro.")
-                     or m == "jax" and sys.modules[m] is not None)
+                     or m in ("jax", "msgpack")
+                     and sys.modules[m] is not None)
         print("LOADED", bad)
         sys.exit(1 if bad else 0)
         """
