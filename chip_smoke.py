@@ -14,16 +14,21 @@ Phases, each printing one JSON line (or one per kernel or run):
 3. ``kernel`` — each kernel against its plain PyTorch version on the card,
    in the working dtype, on inputs drawn from a seeded generator: K1/K2
    at the paged serving path's shapes (page 16, tables covering 1024
-   tokens: internlm2's 8 requests × 16 heads over 8 kv heads, hd 128, and
-   granite-moe's 24 heads over 8, hd 64) and a smoke shape; K3 (flash
+   tokens: internlm2's 8 requests × 16 heads over 8 kv heads, hd 128,
+   granite-moe's 24 heads over 8, hd 64, stablelm's 32 over 32, hd 64,
+   and qwen1.5's 64 over 8, hd 128) and a smoke shape; K3 (flash
    attention) at internlm2's first prompt chunk and full prompt, a gemma3
-   local layer, a zamba2 prompt (hd 64) and a smoke shape; K4 (decode
+   local layer, a zamba2 prompt (hd 64), deepseek-v2's MLA prefill (128
+   heads, q/k 192 wide, V 128), whisper-base's 1,500-frame encoder and
+   its cross-attention at Sq = 1 and 64, and a smoke shape; K4 (decode
    attention) at the chunked-prefill continuation, a dense batch, a
    gemma3 global layer, a windowed batch and granite-moe's dense batch
    (hd 64); K5 (grouped matmul) at the capacities the MoE code
    gives granite-moe's serving traffic (paged and dense decode, a prefill
-   of each prompt length served, a 400- and a 1024-token prefill) and a
-   ragged smoke shape; K6 (the Mamba-2 SSD scan, f32) at mamba2 prefills
+   of each prompt length served, a 400- and a 1024-token prefill),
+   deepseek-v2's (160 experts, D 5120, F 1536: the dense decode's C 32
+   and a prefill's C 8) and a ragged smoke shape; K6 (the Mamba-2 SSD
+   scan, f32) at mamba2 prefills
    of 32, 65, 256, 768 and 1024 tokens, a zamba2 prefill of 1024, a batch
    of 3 and a ragged smoke shape.  Kernel, plain-version and library
    (``scaled_dot_product_attention``, ``torch.bmm``; none computes K6)
@@ -32,9 +37,14 @@ Phases, each printing one JSON line (or one per kernel or run):
    bound from the bytes and operations each call needs, the achieved
    TFLOP/s and the share of the bound reached, and the host time of one
    call; for K6 also the device kernels one call launches, from
-   ``torch.profiler``, whose lines a full run prints after phase 11 (the
+   ``torch.profiler``, whose lines a full run prints after phase 14 (the
    profiler runs after every serve phase's host times);
-4. ``serve`` — internlm2-1.8b at full width (24 layers, d 2048, hd 128,
+4. ``simulator`` — the paper's Spark-fidelity simulator
+   (``repro_torch.core.spark_sim``, host only): sort, WC and grep in one
+   6 GB executor under FAIR and under MURS, and each job alone; every
+   field of every ``ServiceMetrics`` equal to SIM_EXPECTED (the CPU
+   rehearsal's), MURS suspending and grep finishing sooner under MURS;
+5. ``serve`` — internlm2-1.8b at full width (24 layers, d 2048, hd 128,
    vocab 92,544; random bf16 weights from a seed) served by the port's
    MURS engine over a paged KV pool sized to force suspensions, first
    through the paged-decode kernel, then (shorter) through its int8
@@ -43,18 +53,18 @@ Phases, each printing one JSON line (or one per kernel or run):
    K3 once per layer of each ``prefill``, K4 once per layer of each
    ``decode_step`` (the chunked-prefill continuation); every request must
    complete;
-5. ``serve-gemma3`` — gemma3-1b at full width (26 layers, 5:1 local:global,
+6. ``serve-gemma3`` — gemma3-1b at full width (26 layers, 5:1 local:global,
    window 512, d 1152, hd 256, one kv head, vocab 262,144, tied
    embeddings) through the same engine: every decode tick takes the
    dense path (K4 on the 4 global layers, the plain ring decode on the 22
    local ones) and every prefill runs K3 on all 26 layers;
-6. ``reference`` — internlm2: one full-width decode step through K1
+7. ``reference`` — internlm2: one full-width decode step through K1
    against the dense step through K4 and the dense step of the plain
    versions on the same caches; gemma3: a 768-token prefill and 8 decode
    steps through K3/K4 against the same inside ``ops.plain_on_card``;
    logits within LOGIT_ATOL, and each row's argmax equal unless the
    reference's top-2 margin is under two bf16 ulps (a near-tie);
-7. ``serve-cluster`` and ``migration-parity`` — the service: a front
+8. ``serve-cluster`` and ``migration-parity`` — the service: a front
    door (MURS shedding, a token bucket on bulk) over two replicas of
    full-width internlm2 that share its parameters on the card, each
    configured as ``serve``'s engine with a pool of its own; a seeded
@@ -69,7 +79,7 @@ Phases, each printing one JSON line (or one per kernel or run):
    ``decode_step``, and every count is the CPU rehearsal's
    (CLUSTER_COUNTS).  Then one request migrated mid-decode keeps the
    tokens it gets alone on one engine, or flips first at a near-tie;
-8. ``serve-granite-moe`` — granite-moe-3b-a800m at full width (32 layers,
+9. ``serve-granite-moe`` — granite-moe-3b-a800m at full width (32 layers,
    d 1536, 24 heads, 8 KV heads, hd 64, 40 experts top-8, d_ff_expert
    512, vocab 49,155, tied embeddings) on the paged path under MURS:
    K5 runs three times per layer of every model call (``prefill``,
@@ -77,12 +87,12 @@ Phases, each printing one JSON line (or one per kernel or run):
    theirs; K5 stays at 0 in the internlm2 and gemma3 runs.  Every K5
    shape this run and the next phase launch is held to the plain version
    (the kernel phase's, or checked after the run);
-9. ``reference`` — granite-moe, in f32 and in bf16: a prefill and a
+10. ``reference`` — granite-moe, in f32 and in bf16: a prefill and a
    paged decode step from equal caches through the kernels and inside
    ``ops.plain_on_card``: logits, argmax and the (layer, token) top-k
    expert sets that differ between the two; in bf16 also the plain run
    with every dispatch pinned to the kernel run's gates;
-10. ``serve-mamba2`` and ``serve-zamba2`` — mamba2-2.7b (64 Mamba-2
+11. ``serve-mamba2`` and ``serve-zamba2`` — mamba2-2.7b (64 Mamba-2
    layers, d 2560, 80 heads of 64, ds 128, vocab 50,280) and zamba2-1.2b
    ((mamba ×5, shared_attn) ×6 + mamba ×2, d 2048, ds 64, the shared
    attention 32 heads of 64, vocab 32,000) at full width on the dense
@@ -90,16 +100,40 @@ Phases, each printing one JSON line (or one per kernel or run):
    K6 once per Mamba layer of every ``prefill``, zamba2's shared
    attention K3 per ``prefill`` and K4 per ``decode_step``; K1, K2 and K5
    never.  Every K6 shape they launch is held to the plain version;
-11. ``reference`` — mamba2 and zamba2, in f32 and in bf16: a 1024- and a
+12. ``reference`` — mamba2 and zamba2, in f32 and in bf16: a 1024- and a
    777-token prefill and 8 decode steps through the kernels and inside
    ``ops.plain_on_card``: logits and argmax.
+13. ``serve-stablelm`` and ``serve-deepseek-v2`` — stablelm-1.6b at full
+   width and depth (24 layers, d 2048, MHA 32 heads of 64, vocab
+   100,352) through ``serve``'s engine with its tenants B and C on the
+   paged path, over STABLELM_POOL_PAGES; deepseek-v2 at full width and
+   4 of its 60 layers (d 5120, MLA over 128 heads with a 512-wide latent
+   and a 64-wide rope key, 160 routed experts top-6 and 2 shared, vocab
+   102,400; 60 layers do not fit one card) on serve-granite-moe's engine
+   and traffic on the dense path, over DEEPSEEK_POOL_PAGES.  Every
+   request completes, MURS suspends, launches as in phase 5 (K1 only on
+   stablelm; K5 three per layer of every model call only on deepseek,
+   every launched K5 shape held to the plain version; no K4 on
+   deepseek, whose MLA decode has no kernel), and the schedule equals
+   the CPU rehearsal's (STABLELM_COUNTS, DEEPSEEK_COUNTS);
+14. ``reference-zoo`` — through the kernels against the plain versions
+   inside ``ops.plain_on_card``: stablelm and qwen1.5-110b (full width,
+   4 of 80 layers) as phase 7 does internlm2 (a paged K1 step against
+   the dense K4 step and the plain step); deepseek-v2 as phase 10 does
+   granite (bf16 at 4 layers, routing pinned to the kernel run's gates
+   and the unpinned top-k flips counted; f32 at 2 layers, no flip); and
+   whisper-base (1,500 frames) and internvl2-26b (full depth in bf16
+   within INTERNVL2_BF16_LOGIT_ATOL; 4 layers in f32 within
+   F32_LOGIT_ATOL; 256 patch embeddings) at the model level,
+   ``prefill(extra=...)`` of a 64-token prompt and 8 decode steps, with
+   their K3/K4 launch counts.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1.  Without a
 CUDA device, or without the port's sources beside this file, it exits
 non-zero and prints no result.
 
-``--only kernels`` (phase 3) or ``--only reference`` (phase 6), or both,
+``--only kernels`` (phase 3) or ``--only reference`` (phase 7), or both,
 stops after those phases and prints neither the kernels line nor the
 result line.  Copied into the root of another checkout, such as a parent
 commit's, the script so holds that tree's package to its own inputs,
@@ -193,6 +227,143 @@ CLUSTER_COUNTS = {
     "requeued": 16, "paged_decode_ticks": 303,
     "model_calls": {"prefill": 48, "decode_step": 565,
                     "decode_step_paged": 303},
+}
+
+#: serve-stablelm: stablelm-1.6b at full width and depth (24 layers, MHA:
+#: 32 heads of 64, 196,608 B/token of KV) on ``serve``'s engine with its
+#: tenants B and C, over a pool of this many 16-token pages: fewer than
+#: their demand, so MURS suspends.  The counts are the CPU rehearsal's (a
+#: narrow stablelm of the same depth and pages); the card's run must give
+#: the same
+STABLELM_POOL_PAGES = 10
+STABLELM_COUNTS = {
+    "suspensions": 5, "prefix_hits": 2, "ticks": 91, "paged_decode_ticks": 87,
+    "chunked_prefill_ticks": 7,
+    "model_calls": {"prefill": 6, "decode_step": 41, "decode_step_paged": 87},
+}
+#: serve-deepseek-v2: deepseek-v2 at full width and DEEPSEEK_LAYERS of its
+#: 60 layers (one MoE layer is 160 x 3 x 5120 x 1536 bf16 weights, 7.5 GB;
+#: 60 do not fit one card) on serve-granite-moe's engine and traffic,
+#: over a pool of DEEPSEEK_POOL_PAGES pages of its 4,608 B/token of MLA
+#: latents; the counts are the CPU rehearsal's
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_POOL_PAGES = 26
+DEEPSEEK_COUNTS = {
+    "suspensions": 1, "prefix_hits": 2, "ticks": 139, "paged_decode_ticks": 0,
+    "chunked_prefill_ticks": 3,
+    "model_calls": {"prefill": 8, "decode_step": 158, "decode_step_paged": 0},
+}
+#: reference-zoo: deepseek-v2 in f32 at this many layers (36 GB of f32
+#: weights; the served 4 would take 70 GB), qwen1.5-110b at full width
+#: and QWEN_LAYERS of its 80 layers (each is 2.7 GB of bf16, and the
+#: embedding and head 5 GB: 80 need 222 GB), whisper-base over
+#: WHISPER_FRAMES encoder frames (30 s of audio) and internvl2-26b's
+#: backbone at full depth behind its 256 patch embeddings, each with a
+#: ZOO_PROMPT-token prompt and ZOO_STEPS decode steps
+DEEPSEEK_F32_LAYERS = 2
+QWEN_LAYERS = 4
+#: internvl2-26b's bf16 logits, kernels against plain versions, through
+#: its 48 layers of d 6144: each layer rounds the residual stream to bf16
+#: after sums taken in other orders, and the gap grows with depth (0.065
+#: at stablelm's 24 layers, 0.039 at qwen1.5's 4); set from the first
+#: reading (0.108-0.122 over 9 steps on an H100, NVIDIA H100 80GB HBM3 at
+#: 700 W) with twice its room.  The same model in f32 at
+#: INTERNVL2_F32_LAYERS layers is held to F32_LOGIT_ATOL with no near-tie,
+#: so the gap is the rounding, not the kernels
+INTERNVL2_BF16_LOGIT_ATOL = 0.25
+INTERNVL2_F32_LAYERS = 4
+WHISPER_FRAMES = 1500
+ZOO_PROMPT, ZOO_STEPS = 64, 8
+#: simulator: every field of every ServiceMetrics of the paper's sort, WC
+#: and grep mix in a 6 GB executor under FAIR and under MURS, and of each
+#: job alone (``run_batch``), as the CPU rehearsal computed them (the
+#: per-task peak live bytes as their count and the SHA-256 of their
+#: sorted pairs' repr).  The simulator does no device arithmetic: equal,
+#: not close
+SIM_EXPECTED = {
+    "fair": dict(
+        jobs={
+            "sort": dict(job_id='sort', submit_time=0.0,
+                finish_time=540.9250424567575, gc_time=151.37504245672284,
+                spills=70, spilled_bytes=11065382442.032244, oom=False,
+                tasks_total=180),
+            "wc": dict(job_id='wc', submit_time=0.0,
+                finish_time=540.9750424567575, gc_time=151.37504245672284,
+                spills=11, spilled_bytes=1743428445.7826319, oom=False,
+                tasks_total=250),
+            "grep": dict(job_id='grep', submit_time=0.0,
+                finish_time=252.5723615281784, gc_time=66.12236152816138,
+                spills=0, spilled_bytes=0.0, oom=False, tasks_total=60),
+        },
+        minor_gcs=59, full_gcs=9, total_gc_time=151.37504245672284, oom=False,
+        min_active_tasks=2, peak_pool_used_fraction=0.8463490844994578,
+        suspensions=0, sim_time=541.0250424567574,
+        peak_task_live=dict(tasks=490, sha256=(
+            "388cb0558289cdc3b54a71a2c3c3b94f"
+            "0fbc43b26c61b9b7dbf1795634750f15")),
+    ),
+    "murs": dict(
+        jobs={
+            "sort": dict(job_id='sort', submit_time=0.0,
+                finish_time=553.1228625328336, gc_time=145.7728625328057,
+                spills=60, spilled_bytes=9507236531.777962, oom=False,
+                tasks_total=180),
+            "wc": dict(job_id='wc', submit_time=0.0,
+                finish_time=502.17097094274817, gc_time=133.67097094269127,
+                spills=12, spilled_bytes=1882256940.9006042, oom=False,
+                tasks_total=250),
+            "grep": dict(job_id='grep', submit_time=0.0,
+                finish_time=211.08384588928087, gc_time=50.5838458892712,
+                spills=0, spilled_bytes=0.0, oom=False, tasks_total=60),
+        },
+        minor_gcs=58, full_gcs=8, total_gc_time=145.7728625328057, oom=False,
+        min_active_tasks=1, peak_pool_used_fraction=0.840030443672278,
+        suspensions=168, sim_time=553.1728625328335,
+        peak_task_live=dict(tasks=490, sha256=(
+            "19615b5e552ff78ac3f5b00fd2bc875d"
+            "b9cc93e9445aa1da6414dcf336c6014d")),
+    ),
+    "batch_sort": dict(
+        jobs={
+            "sort": dict(job_id='sort', submit_time=0.0,
+                finish_time=290.9500154617951, gc_time=99.450015461774,
+                spills=61, spilled_bytes=9848815027.208788, oom=False,
+                tasks_total=180),
+        },
+        minor_gcs=27, full_gcs=7, total_gc_time=99.450015461774, oom=False,
+        min_active_tasks=1, peak_pool_used_fraction=0.8392802450352909,
+        suspensions=0, sim_time=291.0000154617951,
+        peak_task_live=dict(tasks=180, sha256=(
+            "6a739fc7df1ee64a0e68686e15c7f220"
+            "bb6a612fb3169094632e537b3f500cc9")),
+    ),
+    "batch_wc": dict(
+        jobs={
+            "wc": dict(job_id='wc', submit_time=0.0,
+                finish_time=185.09677582622646, gc_time=45.796775826218386,
+                spills=11, spilled_bytes=1741265211.1396449, oom=False,
+                tasks_total=250),
+        },
+        minor_gcs=24, full_gcs=2, total_gc_time=45.796775826218386, oom=False,
+        min_active_tasks=5, peak_pool_used_fraction=0.8441081050494568,
+        suspensions=0, sim_time=185.14677582622647,
+        peak_task_live=dict(tasks=250, sha256=(
+            "71216bc15c88eb501ebffc27335113c6"
+            "901ce953d0f4756466e80d4127abbe2c")),
+    ),
+    "batch_grep": dict(
+        jobs={
+            "grep": dict(job_id='grep', submit_time=0.0,
+                finish_time=64.60599999999852, gc_time=2.056, spills=0,
+                spilled_bytes=0.0, oom=False, tasks_total=60),
+        },
+        minor_gcs=4, full_gcs=0, total_gc_time=2.056, oom=False,
+        min_active_tasks=12, peak_pool_used_fraction=0.28064, suspensions=0,
+        sim_time=64.65599999999851,
+        peak_task_live=dict(tasks=60, sha256=(
+            "ae75fb946492bf9dd4fd8f062bf4d876"
+            "eec19e0c511b1fad50120f67f22630d0")),
+    ),
 }
 
 
@@ -377,8 +548,9 @@ def bf16_ulp(x):
 
 #: K1/K2's kernel-phase shapes: a smoke shape with a zero-length row,
 #: internlm2's paged batch (8 requests x 16 heads over 8 kv heads, hd
-#: 128) and granite-moe's (24 heads over 8, hd 64), 64-page tables; the
-#: kernels line takes ``path``.  Each (kernel, case) draws its inputs from
+#: 128), granite-moe's (24 heads over 8, hd 64), stablelm's (MHA: 32
+#: heads over 32, hd 64, one head per kv group) and qwen1.5's (64 heads
+#: over 8, hd 128), 64-page tables; the kernels line takes ``path``.  Each (kernel, case) draws its inputs from
 #: a generator of its own, seeded by its names, so that adding a case
 #: moves no other case's inputs
 PAGED_CASES = {
@@ -388,6 +560,10 @@ PAGED_CASES = {
                  width=MAX_SEQ // PAGE),
     "granite_path": dict(reqs=8, heads=24, kv_heads=8, hd=64, page=PAGE,
                          width=MAX_SEQ // PAGE),
+    "stablelm_path": dict(reqs=8, heads=32, kv_heads=32, hd=64, page=PAGE,
+                          width=MAX_SEQ // PAGE),
+    "qwen_path": dict(reqs=8, heads=64, kv_heads=8, hd=128, page=PAGE,
+                      width=MAX_SEQ // PAGE),
 }
 
 
@@ -497,16 +673,25 @@ def kernel_phase(torch, F, pd, ref, timer):
     return results
 
 
-# (name, B, H, KV, Sq, Sk, hd, causal, window, q_offset): K3 at internlm2's
-# first prompt chunk (the serve run's prefills are 32-65 tokens) and full
-# prompt, a gemma3 local layer, a zamba2 shared-attention prompt (hd 64,
-# the width granite-moe's layers launch too), and a smoke shape whose last
-# two rows keep no key (positions 40, 41 against 37 keys, window 4)
+# (name, B, H, KV, Sq, Sk, hd, causal, window, q_offset[, vd]): K3 at
+# internlm2's first prompt chunk (the serve run's prefills are 32-65
+# tokens) and full prompt, a gemma3 local layer, a zamba2 shared-attention
+# prompt (hd 64, the width granite-moe's layers launch too), deepseek-v2's
+# MLA prefill of serve-deepseek-v2's 160-token A prompt (128 heads, q/k
+# 192 wide, V ``vd`` = 128 wide, zero-padded to 192 in the wrapper),
+# whisper-base's encoder over 1,500 frames (non-causal, hd 64) and its
+# cross-attention of one decode query and of a 64-token prompt against
+# them, and a smoke shape whose last two rows keep no key (positions 40,
+# 41 against 37 keys, window 4)
 FLASH_CASES = [
     ("internlm2_chunk", 1, 16, 8, 64, 64, 128, True, 0, 0),
     ("internlm2_prompt", 1, 16, 8, 1024, 1024, 128, True, 0, 0),
     ("gemma3_local", 1, 4, 1, 1024, 1024, 256, True, 512, 0),
     ("zamba2_prompt", 1, 32, 32, 1024, 1024, 64, True, 0, 0),
+    ("mla_prefill", 1, 128, 128, 160, 160, 192, True, 0, 0, 128),
+    ("whisper_encoder", 1, 8, 8, 1500, 1500, 64, False, 0, 0),
+    ("whisper_cross_decode", 1, 8, 8, 1, 1500, 64, False, 0, 0),
+    ("whisper_cross_prompt", 1, 8, 8, 64, 1500, 64, False, 0, 0),
     ("smoke", 1, 4, 2, 37, 37, 16, True, 4, 5),
 ]
 # (name, B, H, KV, S, hd, window, positions): K4 at the chunked-prefill
@@ -564,13 +749,15 @@ def attention_kernel_phase(torch, F, ref, timer):
         return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
 
     results = {}
-    for name, b, h, kv, sq, sk, hd, causal, window, q_offset in FLASH_CASES:
+    for name, b, h, kv, sq, sk, hd, causal, window, q_offset, *vd in (
+            FLASH_CASES):
+        vd = vd[0] if vd else hd
         for dtype in ((torch.float32, torch.bfloat16) if name == "smoke"
                       else (torch.bfloat16,)):
             q = rand(dtype, b, h, sq, hd)
             k = rand(dtype, b, kv, sk, hd)
-            # v as the model holds it: a transposed view of [B, Sk, KV, hd]
-            v = rand(dtype, b, sk, kv, hd).transpose(1, 2)
+            # v as the model holds it: a transposed view of [B, Sk, KV, vd]
+            v = rand(dtype, b, sk, kv, vd).transpose(1, 2)
             kw = dict(causal=causal, window=window, q_offset=q_offset)
             out = flash_attention(q, k, v, **kw)
             gold = ref.flash_attention_ref(q, k, v, **kw)
@@ -584,8 +771,9 @@ def attention_kernel_phase(torch, F, ref, timer):
             if dtype != torch.bfloat16:
                 continue
             pairs, empty = kept_pairs(sq, sk, causal, window, q_offset)
-            n_bytes = 2 * (2 * b * h * sq * hd + 2 * b * kv * sk * hd)
-            flops = 4 * hd * b * h * pairs
+            # q and k read, v read and the output written, once each
+            n_bytes = 2 * (b * h * sq * (hd + vd) + b * kv * sk * (hd + vd))
+            flops = 2 * (hd + vd) * b * h * pairs
             bound_ms, bound_by = bound(n_bytes, flops, dtype, torch)
             # yardstick: one SDPA call on KV repeated to the q heads
             kr = ref.repeat_kv(k, h // kv)
@@ -600,8 +788,8 @@ def attention_kernel_phase(torch, F, ref, timer):
             r = {
                 "phase": "kernel", "name": "flash_attention", "case": name,
                 "shape": {"B": b, "H": h, "KV": kv, "Sq": sq, "Sk": sk,
-                          "hd": hd, "causal": causal, "window": window,
-                          "q_offset": q_offset},
+                          "hd": hd, "vd": vd, "causal": causal,
+                          "window": window, "q_offset": q_offset},
                 "kept_pairs": pairs, "rows_without_key": empty,
                 "max_abs_err": err, "tolerance_bf16": atol,
                 "ms": time_ms(torch, lambda: flash_attention(q, k, v, **kw),
@@ -705,6 +893,23 @@ def gmm_cases(cfg):
     for s in sorted(set(GRANITE_PROMPTS.values())) + [400, 1024]:
         cases.append((f"prefill_s{s}", e, _capacity(cfg, s), d, f))
     return cases + [("smoke", 3, 5, 72, 40)]
+
+
+def deepseek_gmm_cases(cfg):
+    """(name, E, C, D, F) of K5 at deepseek-v2's widths (160 experts, D
+    5120, F 1536), with C from the MoE code's capacity functions: the
+    dense decode step's N_SLOTS per-row groups folded together (C 32) and
+    a prefill of serve-deepseek-v2's longest prompt (C 8), gate/up and
+    down.  Each weight operand is 2.5 GB of bf16."""
+    from repro_torch.models.blocks import _capacity, _decode_capacity
+
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    c_dec = N_SLOTS * _decode_capacity(cfg, 1)
+    c_pre = _capacity(cfg, GRANITE_PROMPTS["A"])
+    return [("deepseek_decode_gate_up", e, c_dec, d, f),
+            ("deepseek_decode_down", e, c_dec, f, d),
+            ("deepseek_prefill_gate_up", e, c_pre, d, f),
+            ("deepseek_prefill_down", e, c_pre, f, d)]
 
 
 #: the K5 case in the kernels line: the shape of two thirds of the serve
@@ -859,8 +1064,9 @@ def traffic(Request, vocab, rng):
     return sched
 
 
-def serve_engine(cfg, params, tenants, int8):
-    """The engine under test and its arrival schedule for ``tenants``."""
+def serve_engine(cfg, params, tenants, int8, pool_pages=POOL_PAGES):
+    """The engine under test and its arrival schedule for ``tenants``,
+    over a pool of ``pool_pages`` pages."""
     from repro_torch.sched import MursConfig, MursPolicy
     from repro_torch.serve import EngineConfig, Request, ServingEngine
 
@@ -868,7 +1074,7 @@ def serve_engine(cfg, params, tenants, int8):
         cfg, params,
         EngineConfig(
             n_slots=N_SLOTS, max_seq=MAX_SEQ,
-            hbm_capacity_bytes=cfg.kv_bytes_per_token() * PAGE * POOL_PAGES,
+            hbm_capacity_bytes=cfg.kv_bytes_per_token() * PAGE * pool_pages,
             policy=MursPolicy(MursConfig.for_serving(period=1.0)),
             prefix_cache=True, paged_decode_int8=int8, device=DEV,
         ),
@@ -992,11 +1198,14 @@ def run_and_count(torch, cfg, eng, sched, ops, calls, extra, phase="serve"):
 
 def block_counts(cfg):
     """(layers that attend at prefill — K3 —, layers whose decode is a
-    full-attention K4 call, Mamba layers — K6 at prefill)."""
+    full-attention K4 call, Mamba layers — K6 at prefill).  MLA decodes
+    in its absorbed latent form, with no kernel."""
     stack = (list(cfg.block_pattern) * cfg.resolved_pattern_repeats
              + list(cfg.suffix_blocks))
     n_mamba = sum(bt == "mamba" for bt in stack)
     n_full = sum(bt in ("attn", "shared_attn") for bt in stack)
+    if cfg.mla is not None:
+        n_full = sum(bt == "shared_attn" for bt in stack)
     return len(stack) - n_mamba, n_full, n_mamba
 
 
@@ -1054,7 +1263,7 @@ def serve_gemma3(torch, cfg, params, ops, calls):
     return out
 
 
-def reference_phase(torch, cfg, params, ops):
+def reference_phase(torch, cfg, params, ops, phase="reference"):
     """One full-width decode step through K1 against the dense step
     through K4 and the dense step of the plain versions
     (``ops.plain_on_card``), on identical caches and batch shapes (3
@@ -1117,7 +1326,7 @@ def reference_phase(torch, cfg, params, ops):
     pairs = (("paged_k1_vs_dense_k4", a, b),
              ("paged_k1_vs_dense_plain", a, r),
              ("dense_k4_vs_dense_plain", b, r))
-    out = {"phase": "reference", "arch": cfg.name, "rows": len(lens),
+    out = {"phase": phase, "arch": cfg.name, "rows": len(lens),
            "vocab": cfg.vocab, "shape": list(logits_p.shape),
            "max_abs_logit_diff": {}, "tolerance": LOGIT_ATOL,
            "argmax_equal": {}, "top2_margin": {}, "near_tie": {}}
@@ -1126,14 +1335,15 @@ def reference_phase(torch, cfg, params, ops):
         out["argmax_equal"][what], out["top2_margin"][what], \
             out["near_tie"][what] = argmax_margins(x, gold)
     emit(out)
-    check(list(logits_p.shape) == [slots, 1, cfg.vocab], "reference: shape")
+    what0 = f"{phase} {cfg.name}"
+    check(list(logits_p.shape) == [slots, 1, cfg.vocab], f"{what0}: shape")
     check(torch.isfinite(a).all().item() and torch.isfinite(b).all().item(),
-          "reference: non-finite logits")
+          f"{what0}: non-finite logits")
     for what, err in out["max_abs_logit_diff"].items():
-        check(err <= LOGIT_ATOL, f"reference: {what} logits differ by {err}")
+        check(err <= LOGIT_ATOL, f"{what0}: {what} logits differ by {err}")
     for what, _, _ in pairs:
         check_argmax(out["argmax_equal"][what], out["top2_margin"][what],
-                     out["near_tie"][what], f"reference {what}")
+                     out["near_tie"][what], f"{what0} {what}")
 
 
 def argmax_margins(x, gold):
@@ -1251,11 +1461,12 @@ def three_tenants(Request, vocab, rng, prompts, a_new):
     return sched
 
 
-def granite_engine(cfg, params, device):
+def granite_engine(cfg, params, device, pool_pages=GRANITE_POOL_PAGES):
     """granite-moe's engine and arrival schedule: the paged path, MURS, 8
     slots, max_seq 1024, page 16, prefix cache on, a 1024-token prefill
     budget (every prompt in one ``prefill`` call) and an HBM budget of
-    GRANITE_POOL_PAGES pages."""
+    ``pool_pages`` pages (serve-deepseek-v2 takes the same engine and
+    traffic on the dense path, with a pool of its own)."""
     from repro_torch.sched import MursConfig, MursPolicy
     from repro_torch.serve import EngineConfig, Request, ServingEngine
 
@@ -1263,8 +1474,7 @@ def granite_engine(cfg, params, device):
         cfg, params,
         EngineConfig(
             n_slots=N_SLOTS, max_seq=MAX_SEQ,
-            hbm_capacity_bytes=cfg.kv_bytes_per_token() * PAGE
-            * GRANITE_POOL_PAGES,
+            hbm_capacity_bytes=cfg.kv_bytes_per_token() * PAGE * pool_pages,
             policy=MursPolicy(MursConfig.for_serving(period=1.0)),
             prefix_cache=True, prefill_chunk_tokens=1024, device=device,
         ),
@@ -1350,10 +1560,6 @@ def reference_granite(torch, cfg, params, ops):
     tokens)."""
     from repro_torch.models import blocks, decode_step_paged, prefill
 
-    def k5_launches():
-        return {fn.__name__: fn.launches
-                for fn in ops.WRAPPERS}["grouped_matmul"]
-
     rng = np.random.default_rng(SEED + 5)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 48)), device=DEV)
     lens, max_seq = [40, 25, 17], 64
@@ -1406,66 +1612,88 @@ def reference_granite(torch, cfg, params, ops):
                                            page_tokens=PAGE, n_pool=n_pool)
             return pre[:, -1].float(), dec[:3, 0].float(), pre_r, dec_r
 
-        before = k5_launches()
-        kern = run()
-        check(k5_launches() > before, "reference-granite: K5 did not launch")
-        with unmoved_counters(ops, "reference-granite"):
-            plain = run()
-            pinned = run(pin=kern)
-        torch.cuda.synchronize()
+        moe_reference_runs(torch, cfg, ops, dtype, run, prompt, len(lens),
+                           "reference", "reference-granite",
+                           rows_of_dispatch=len(lens))
         del p, per_slot, slots
         torch.cuda.empty_cache()
-        flips = {"prefill": routing_flips(kern[2], plain[2]),
-                 "decode": routing_flips(kern[3], plain[3], rows=len(lens))}
-        out = {"phase": "reference", "arch": cfg.name,
-               "dtype": str(dtype).replace("torch.", ""),
-               "prefill_shape": list(prompt.shape), "decode_rows": len(lens),
-               "routing_pairs": {"prefill": len(kern[2]) * prompt.numel(),
-                                 "decode": len(kern[3]) * len(lens)},
-               "routing_flip_count": {k: len(v) for k, v in flips.items()},
-               "first_flip_layer": {k: min((f[0] for f in v), default=None)
-                                    for k, v in flips.items()},
-               "routing_flips": flips,
-               "tolerance": (F32_LOGIT_ATOL if dtype == torch.float32
-                             else LOGIT_ATOL)}
-        for name, other in (("plain", plain), ("plain_pinned", pinned)):
-            for i, what in enumerate(("prefill", "decode")):
-                gap = (kern[i] - other[i]).abs().amax(dim=-1)
-                out[f"{what}_max_abs_logit_diff_{name}"] = gap.tolist()
-                (out[f"{what}_argmax_equal_{name}"],
-                 out[f"{what}_top2_margin_{name}"],
-                 out[f"{what}_near_tie_{name}"]) = argmax_margins(kern[i],
-                                                                  other[i])
-        emit(out)
+
+
+def moe_reference_runs(torch, cfg, ops, dtype, run, prompt, rows, phase,
+                       label, rows_of_dispatch=None):
+    """The checks of an MoE model's reference phase.  ``run(pin)`` gives
+    (prefill logits, decode logits of ``rows`` rows, routing of the
+    prefill, routing of the decode step; ``rows_of_dispatch`` keeps the
+    real rows of a one-group decode dispatch); it runs through the kernels
+    (K5 must launch), inside ``ops.plain_on_card``, and there again with
+    every dispatch pinned to the kernel run's gates.  f32: logits within
+    F32_LOGIT_ATOL, argmax equal in every row, no routing choice differs.
+    bf16: the pinned run within LOGIT_ATOL under the near-tie rule; the
+    unpinned run's share of differing (layer, token) top-k sets within
+    UNPINNED_FLIP_SHARE and its logits within UNPINNED_LOGIT_ATOL."""
+    def k5_launches():
+        return {fn.__name__: fn.launches
+                for fn in ops.WRAPPERS}["grouped_matmul"]
+
+    before = k5_launches()
+    kern = run()
+    check(k5_launches() > before, f"{label}: K5 did not launch")
+    with unmoved_counters(ops, label):
+        plain = run()
+        pinned = run(pin=kern)
+    torch.cuda.synchronize()
+    flips = {"prefill": routing_flips(kern[2], plain[2]),
+             "decode": routing_flips(kern[3], plain[3],
+                                     rows=rows_of_dispatch)}
+    out = {"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+           "dtype": str(dtype).replace("torch.", ""),
+           "prefill_shape": list(prompt.shape), "decode_rows": rows,
+           "routing_pairs": {"prefill": len(kern[2]) * prompt.numel(),
+                             "decode": len(kern[3]) * rows},
+           "routing_flip_count": {k: len(v) for k, v in flips.items()},
+           "first_flip_layer": {k: min((f[0] for f in v), default=None)
+                                for k, v in flips.items()},
+           "routing_flips": flips,
+           "tolerance": (F32_LOGIT_ATOL if dtype == torch.float32
+                         else LOGIT_ATOL)}
+    for name, other in (("plain", plain), ("plain_pinned", pinned)):
         for i, what in enumerate(("prefill", "decode")):
-            check(torch.isfinite(kern[i]).all().item(),
-                  f"reference-granite {dtype}: non-finite {what} logits")
-        f32 = dtype == torch.float32
-        held = "plain" if f32 else "plain_pinned"
-        if f32:
-            check(not flips["prefill"] and not flips["decode"],
-                  f"reference-granite f32: routing differs: {flips}")
-        for what in ("prefill", "decode"):
-            gaps = out[f"{what}_max_abs_logit_diff_{held}"]
-            check(max(gaps) <= out["tolerance"],
-                  f"reference-granite {dtype} {what}: logits against "
-                  f"{held} differ by {max(gaps)}")
-            # f32 allows no near-tie
-            ties = out[f"{what}_near_tie_{held}"]
-            check_argmax(out[f"{what}_argmax_equal_{held}"],
-                         out[f"{what}_top2_margin_{held}"],
-                         [0.0] * len(ties) if f32 else ties,
-                         f"reference-granite {dtype} {what}")
-            if not f32:
-                share = (out["routing_flip_count"][what]
-                         / out["routing_pairs"][what])
-                unpinned = max(out[f"{what}_max_abs_logit_diff_plain"])
-                check(share <= UNPINNED_FLIP_SHARE,
-                      f"reference-granite bf16 {what}: {share:.3f} of "
-                      f"(layer, token) expert sets differ unpinned")
-                check(unpinned <= UNPINNED_LOGIT_ATOL,
-                      f"reference-granite bf16 {what}: unpinned logits "
-                      f"differ by {unpinned}")
+            gap = (kern[i] - other[i]).abs().amax(dim=-1)
+            out[f"{what}_max_abs_logit_diff_{name}"] = gap.tolist()
+            (out[f"{what}_argmax_equal_{name}"],
+             out[f"{what}_top2_margin_{name}"],
+             out[f"{what}_near_tie_{name}"]) = argmax_margins(kern[i],
+                                                              other[i])
+    emit(out)
+    for i, what in enumerate(("prefill", "decode")):
+        check(torch.isfinite(kern[i]).all().item(),
+              f"{label} {dtype}: non-finite {what} logits")
+    f32 = dtype == torch.float32
+    held = "plain" if f32 else "plain_pinned"
+    if f32:
+        check(not flips["prefill"] and not flips["decode"],
+              f"{label} f32: routing differs: {flips}")
+    for what in ("prefill", "decode"):
+        gaps = out[f"{what}_max_abs_logit_diff_{held}"]
+        check(max(gaps) <= out["tolerance"],
+              f"{label} {dtype} {what}: logits against "
+              f"{held} differ by {max(gaps)}")
+        # f32 allows no near-tie
+        ties = out[f"{what}_near_tie_{held}"]
+        check_argmax(out[f"{what}_argmax_equal_{held}"],
+                     out[f"{what}_top2_margin_{held}"],
+                     [0.0] * len(ties) if f32 else ties,
+                     f"{label} {dtype} {what}")
+        if not f32:
+            share = (out["routing_flip_count"][what]
+                     / out["routing_pairs"][what])
+            unpinned = max(out[f"{what}_max_abs_logit_diff_plain"])
+            check(share <= UNPINNED_FLIP_SHARE,
+                  f"{label} bf16 {what}: {share:.3f} of "
+                  f"(layer, token) expert sets differ unpinned")
+            check(unpinned <= UNPINNED_LOGIT_ATOL,
+                  f"{label} bf16 {what}: unpinned logits "
+                  f"differ by {unpinned}")
 
 
 # ------------------------------------------------------------ mamba2, zamba2
@@ -2073,6 +2301,300 @@ def migration_parity(torch, cfg, params, ops):
     check(len(got) == 32, "migration-parity: the request did not finish")
     return line
 
+# --------------------------------------------------------------- simulator
+def sim_fields(m):
+    """A ServiceMetrics as the plain data SIM_EXPECTED holds: every field,
+    with the per-task peak live bytes as their count and the SHA-256 of
+    their sorted (task, bytes) pairs' repr."""
+    import dataclasses
+    import hashlib
+
+    d = dataclasses.asdict(m)
+    peak = d.pop("peak_task_live")
+    d["peak_task_live"] = {
+        "tasks": len(peak),
+        "sha256": hashlib.sha256(
+            repr(sorted(peak.items())).encode()).hexdigest(),
+    }
+    return d
+
+
+def simulator_runs():
+    """The simulator runs SIM_EXPECTED holds, by name."""
+    from repro_torch.core import MursConfig
+    from repro_torch.core.spark_sim import (
+        make_grep, make_sort, make_wc, run_batch, run_service,
+    )
+
+    def mix():
+        return [make_sort(), make_wc(), make_grep()]
+
+    runs = {"fair": run_service(mix(), heap_gb=6.0, oom_is_fatal=False),
+            "murs": run_service(mix(), heap_gb=6.0, murs=MursConfig(),
+                                oom_is_fatal=False)}
+    for jid, m in run_batch(mix(), heap_gb=6.0).items():
+        runs[f"batch_{jid}"] = m
+    return {name: sim_fields(m) for name, m in runs.items()}
+
+
+def simulator_phase():
+    """The paper's Spark-fidelity simulator (``repro_torch.core``; host
+    only): every field equal to SIM_EXPECTED, and the paper's claims —
+    MURS suspends, and grep, the light job, finishes sooner under MURS
+    than under FAIR."""
+    t0 = time.perf_counter()
+    got = simulator_runs()
+    emit({"phase": "simulator", "seconds": time.perf_counter() - t0,
+          "runs": got})
+    check(set(got) == set(SIM_EXPECTED), f"simulator: runs {sorted(got)}")
+    for name, want in SIM_EXPECTED.items():
+        check(got[name] == want, f"simulator {name}: {got[name]} != the "
+              f"rehearsal's {want}")
+    fair, murs = got["fair"], got["murs"]
+    check(murs["suspensions"] > 0, "simulator: MURS never suspended")
+    check(murs["jobs"]["grep"]["finish_time"]
+          < fair["jobs"]["grep"]["finish_time"],
+          "simulator: grep no sooner under MURS")
+
+
+# ------------------------------------------------------- the rest of the zoo
+def check_counts(out, expected, phase):
+    """A serve run's schedule equal to the CPU rehearsal's."""
+    got = {k: out[k] for k in expected}
+    check(got == expected,
+          f"{phase}: counts {got} != the rehearsal's {expected}")
+
+
+def serve_stablelm(torch, cfg, params, ops, calls):
+    """stablelm-1.6b through ``serve``'s engine (the paged path under
+    MURS) with tenants B and C over STABLELM_POOL_PAGES: K1 once per layer
+    of every paged tick, K3 of every ``prefill``, K4 of every
+    ``decode_step``; K2, K5 and K6 never; the schedule as rehearsed."""
+    phase = "serve-stablelm"
+    eng, sched = serve_engine(cfg, params, ("B", "C"), False,
+                              STABLELM_POOL_PAGES)
+    out, eng = run_and_count(torch, cfg, eng, sched, ops, calls,
+                             {"tenants": ["B", "C"],
+                              "pool_pages": STABLELM_POOL_PAGES},
+                             phase=phase)
+    launches = out["launches"]
+    check(eng.paged_decode_ticks > 0, f"{phase}: no paged decode tick")
+    check(launches["paged_decode_attention"]
+          == cfg.n_layers * eng.paged_decode_ticks,
+          f"{phase}: paged_decode_attention "
+          f"{launches['paged_decode_attention']} launches != "
+          f"{cfg.n_layers} layers x {eng.paged_decode_ticks} paged ticks")
+    check(launches["paged_decode_attention_int8"] == 0,
+          f"{phase}: K2 launched")
+    check(out["suspensions"] > 0, f"{phase}: no suspension")
+    check_counts(out, STABLELM_COUNTS, phase)
+    return out
+
+
+def serve_deepseek(torch, cfg, params, ops, calls, ref, checked):
+    """deepseek-v2 on serve-granite-moe's engine and traffic, on the dense
+    path (MLA latents are not pool pages) under MURS, over
+    DEEPSEEK_POOL_PAGES: K3 once per layer of every ``prefill`` (q/k 192
+    wide, V 128 padded), K5 three times per layer of every model call,
+    every K5 shape launched held to the plain version; K1, K2, K4 and K6
+    never; the schedule as rehearsed."""
+    phase = "serve-deepseek-v2"
+    eng, sched = granite_engine(cfg, params, DEV, DEEPSEEK_POOL_PAGES)
+    with gmm_shapes(ops) as shapes:
+        out, eng = run_and_count(torch, cfg, eng, sched, ops, calls,
+                                 {"pool_pages": DEEPSEEK_POOL_PAGES},
+                                 phase=phase)
+    check_launched_gmm_shapes(torch, ref, shapes, checked, phase)
+    launches = out["launches"]
+    for name in ("paged_decode_attention", "paged_decode_attention_int8",
+                 "decode_attention", "ssd_scan"):
+        check(launches[name] == 0, f"{phase}: {name} launched")
+    check(calls["decode_step_paged"] == 0 and eng.paged_decode_ticks == 0,
+          f"{phase}: a paged decode step on an MLA model")
+    check(launches["flash_attention"] > 0 and launches["grouped_matmul"] > 0,
+          f"{phase}: K3 or K5 never launched")
+    check(out["suspensions"] > 0, f"{phase}: no suspension")
+    check_counts(out, DEEPSEEK_COUNTS, phase)
+    return out
+
+
+def reference_deepseek(torch, cfg, params, ops):
+    """deepseek-v2: a 2 x 48-token prefill, and one dense decode step of
+    3 rows (40, 25 and 17 tokens, each its own dispatch group, as the
+    engine's dense path runs them) from equal per-slot caches, through
+    the kernels (K3 with V padded to q's width, K5 at 160 experts) and
+    inside ``ops.plain_on_card``, held by ``moe_reference_runs``: in f32
+    no routing choice may differ, in bf16 the plain run pinned to the
+    kernel run's gates within LOGIT_ATOL and the unpinned top-k flips
+    counted.  The MLA decode is plain torch on both sides."""
+    from repro_torch.models import blocks, decode_step, prefill
+
+    dtype = params["embed"]["tokens"].dtype
+    rng = np.random.default_rng(SEED + 10)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 48)), device=DEV)
+    lens, max_seq = [40, 25, 17], 64
+    seqs = [torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)), device=DEV)
+            for n in lens]
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (len(lens), 1)),
+                          dtype=torch.int32, device=DEV)
+    poss = torch.as_tensor(lens, dtype=torch.int32, device=DEV)
+    per_slot = [prefill(cfg, params, t, max_seq=max_seq)[1]["unit"]
+                for t in seqs]
+    slots = {k: tuple(torch.cat([c[k][i] for c in per_slot], dim=1)
+                      for i in range(2)) for k in per_slot[0]}
+    del per_slot
+
+    def run(pin=None):
+        with routing(blocks, pin and pin[2]) as pre_r:
+            pre, _ = prefill(cfg, params, prompt, max_seq=max_seq)
+        caches = {"unit": {k: tuple(t.clone() for t in v)
+                           for k, v in slots.items()}, "suffix": []}
+        with routing(blocks, pin and pin[3]) as dec_r:
+            dec, _ = decode_step(cfg, params, tok, caches, poss)
+        return pre[:, -1].float(), dec[:, 0].float(), pre_r, dec_r
+
+    moe_reference_runs(torch, cfg, ops, dtype, run, prompt, len(lens),
+                       "reference-zoo", "reference-deepseek-v2")
+
+
+def frontend_extra(torch, cfg):
+    """whisper's WHISPER_FRAMES frame embeddings or internvl2's patch
+    embeddings: seeded unit normals in bf16, [1, n, d_model]."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    if cfg.enc_layers:
+        key, n = "frame_embeds", WHISPER_FRAMES
+    else:
+        key, n = "patch_embeds", cfg.vision_tokens
+    return {key: torch.randn(1, n, cfg.d_model, generator=gen,
+                             device=DEV).to(torch.bfloat16)}
+
+
+def reference_frontend(torch, cfg, params, ops, atol=LOGIT_ATOL):
+    """whisper-base or internvl2-26b at full width and depth, at the model
+    level (the engine serves neither: its requests carry no ``extra``;
+    ROADMAP Queue 3): ``prefill(extra=...)`` of a ZOO_PROMPT-token prompt
+    and ZOO_STEPS decode steps through the kernels, then inside
+    ``ops.plain_on_card``, on the same parameters and inputs.  K3 runs
+    once per layer of the prefill (and in whisper once per encoder layer
+    and once per decoder layer's cross-attention, there also at Sq = 1 in
+    every step), K4 once per decoder layer of every step.  Logits of
+    every step within ``atol``; argmax equal, or in bf16 a near-tie of
+    the plain run's."""
+    from repro_torch.models import decode_step, prefill
+
+    extra = frontend_extra(torch, cfg)
+    rng = np.random.default_rng(SEED + 11)
+    toks = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (1, ZOO_PROMPT + ZOO_STEPS)), device=DEV)
+    n0 = ZOO_PROMPT + extra.get("patch_embeds", toks[:, :0]).shape[1]
+
+    def run():
+        logits, caches = prefill(cfg, params, toks[:, :ZOO_PROMPT],
+                                 extra=extra, max_seq=n0 + ZOO_STEPS)
+        out = [logits[:, -1]]
+        for i in range(ZOO_STEPS):
+            t = ZOO_PROMPT + i
+            logits, caches = decode_step(cfg, params, toks[:, t:t + 1],
+                                         caches, n0 + i)
+            out.append(logits[:, 0])
+        return torch.cat(out).float()
+
+    ops.reset_launch_counts()
+    kern = run()
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    with unmoved_counters(ops, f"reference-{cfg.name}"):
+        plain = run()
+    torch.cuda.synchronize()
+    n, cross = cfg.n_layers, bool(cfg.enc_layers)
+    want = {"flash_attention": cfg.enc_layers + n + (n + n * ZOO_STEPS
+                                                      if cross else 0),
+            "decode_attention": n * ZOO_STEPS}
+    gap = (kern - plain).abs().amax(dim=-1)
+    same, margins, ties = argmax_margins(kern, plain)
+    dtype = params["embed"]["tokens"].dtype
+    if dtype == torch.float32:
+        ties = [0.0] * len(ties)  # f32 allows no near-tie
+    out = {"phase": "reference-zoo", "arch": cfg.name, "layers": n,
+           "dtype": str(dtype).replace("torch.", ""),
+           "enc_layers": cfg.enc_layers,
+           "extra": {k: list(v.shape) for k, v in extra.items()},
+           "prompt": ZOO_PROMPT, "decode_steps": ZOO_STEPS,
+           "max_abs_logit_diff": gap.max().item(),
+           "per_step_max_abs_logit_diff": gap.tolist(),
+           "tolerance": atol, "argmax_equal": same,
+           "top2_margin": margins, "near_tie": ties, "launches": launches,
+           "expected_launches": want}
+    emit(out)
+    what = f"reference-{cfg.name} {out['dtype']}"
+    check(torch.isfinite(kern).all().item(), f"{what}: non-finite logits")
+    for name, count in want.items():
+        check(launches[name] == count,
+              f"{what}: {name} launched {launches[name]} times, not {count}")
+    for name in ("paged_decode_attention", "paged_decode_attention_int8",
+                 "grouped_matmul", "ssd_scan"):
+        check(launches[name] == 0, f"{what}: {name} launched")
+    check(out["max_abs_logit_diff"] <= atol,
+          f"{what}: logits differ by {out['max_abs_logit_diff']}")
+    check_argmax(same, margins, ties, f"{what} step")
+
+
+def zoo_phases(torch, ARCHS, init_model, ops, calls, ref, gmm_checked):
+    """serve-stablelm, serve-deepseek-v2 and reference-zoo, each model's
+    weights freed before the next loads; returns the two serve runs.
+    deepseek-v2 and qwen1.5 keep their full width at a cut depth."""
+    import dataclasses
+    import gc
+
+    def depth(name, layers):
+        return dataclasses.replace(ARCHS[name], n_layers=layers)
+
+    def free():
+        """Return a model's memory to the card before the next loads: a
+        serve phase's engine holds the params and sits in reference
+        cycles, which only the cycle collector frees."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()  # the earlier phases' engines, too
+    cfg = ARCHS["stablelm-1.6b"]
+    params = init_params(torch, cfg, init_model)
+    stablelm = serve_stablelm(torch, cfg, params, ops, calls)
+    reference_phase(torch, cfg, params, ops, phase="reference-zoo")
+    del params
+    free()
+
+    for layers, dtype in ((DEEPSEEK_LAYERS, torch.bfloat16),
+                          (DEEPSEEK_F32_LAYERS, torch.float32)):
+        cfg = depth("deepseek-v2-236b", layers)
+        params = init_params(torch, cfg, init_model, dtype=dtype)
+        if dtype == torch.bfloat16:
+            deepseek = serve_deepseek(torch, cfg, params, ops, calls, ref,
+                                      gmm_checked)
+        with gmm_shapes(ops) as shapes:
+            reference_deepseek(torch, cfg, params, ops)
+        check_launched_gmm_shapes(torch, ref, shapes, gmm_checked,
+                                  f"reference-deepseek-v2 {dtype}")
+        del params
+        free()
+
+    cfg = depth("qwen1.5-110b", QWEN_LAYERS)
+    params = init_params(torch, cfg, init_model)
+    reference_phase(torch, cfg, params, ops, phase="reference-zoo")
+    del params
+    free()
+
+    for cfg, dtype, atol in (
+            (ARCHS["whisper-base"], torch.bfloat16, LOGIT_ATOL),
+            (ARCHS["internvl2-26b"], torch.bfloat16,
+             INTERNVL2_BF16_LOGIT_ATOL),
+            (depth("internvl2-26b", INTERNVL2_F32_LAYERS), torch.float32,
+             F32_LOGIT_ATOL)):
+        params = init_params(torch, cfg, init_model, dtype=dtype)
+        reference_frontend(torch, cfg, params, ops, atol)
+        del params
+        free()
+    return stablelm, deepseek
+
 
 def _map_tensors(tree, fn):
     if isinstance(tree, dict):
@@ -2135,8 +2657,9 @@ def main(argv=None) -> int:
         timer = Timer(torch)
         kres = kernel_phase(torch, F, pd, ref, timer)
         kres.update(attention_kernel_phase(torch, F, ref, timer))
-        gmm, gmm_checked = gmm_kernel_phase(torch, ref, timer,
-                                            gmm_cases(m_cfg))
+        gmm, gmm_checked = gmm_kernel_phase(
+            torch, ref, timer,
+            gmm_cases(m_cfg) + deepseek_gmm_cases(ARCHS["deepseek-v2-236b"]))
         kres.update(gmm)
         ssd, ssd_checked, ssd_lines = ssd_kernel_phase(
             torch, ref, timer, ssd_cases(s_cfg, z_cfg))
@@ -2153,6 +2676,8 @@ def main(argv=None) -> int:
                 del params
                 torch.cuda.empty_cache()
         return 0
+
+    simulator_phase()
 
     # the engine calls the model through these names: count the calls
     calls = count_calls(engine_module,
@@ -2199,6 +2724,7 @@ def main(argv=None) -> int:
                                   f"reference-{cfg.name}")
         del params
         torch.cuda.empty_cache()
+    zoo = zoo_phases(torch, ARCHS, init_model, ops, calls, ref, gmm_checked)
     emit_ssd_lines(torch, ssd_lines)
 
     replaces = {
@@ -2218,9 +2744,9 @@ def main(argv=None) -> int:
         "grouped_matmul": "grouped_matmul.cu",
         "ssd_scan": "ssd_scan.cu",
     }
-    # launches on the main path: the sum over the seven serving runs,
+    # launches on the main path: the sum over the nine serving runs,
     # each counted from zero
-    runs = (f32, i8, cluster, g3, moe, *ssm_runs)
+    runs = (f32, i8, cluster, g3, moe, *ssm_runs, *zoo)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{source[name]}",
@@ -2238,10 +2764,12 @@ def main(argv=None) -> int:
     return 0
 
 
-def init_params(torch, cfg, init_model):
-    """Random bf16 parameters of ``cfg`` at full width from SEED."""
+def init_params(torch, cfg, init_model, dtype=None):
+    """Random parameters of ``cfg`` at full width from SEED, in bf16 (or
+    ``dtype``)."""
     t0 = time.perf_counter()
-    params = init_model(cfg, SEED, device=DEV)
+    params = init_model(cfg, SEED, device=DEV,
+                        dtype=dtype or torch.bfloat16)
     torch.cuda.synchronize()
     emit({"phase": "init", "arch": cfg.name, "layers": cfg.n_layers,
           "d_model": cfg.d_model, "head_dim": cfg.head_dim,

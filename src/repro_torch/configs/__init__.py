@@ -1,4 +1,5 @@
-"""Config registry: the architectures the port runs."""
+"""Config registry: the architectures the port runs (the JAX package's
+ten, copied)."""
 
 from typing import Dict
 
@@ -12,16 +13,31 @@ from .base import (
     ShapeConfig,
     SHAPES,
 )
+from .deepseek_v2_236b import CONFIG as deepseek_v2_236b
 from .gemma3_1b import CONFIG as gemma3_1b
 from .granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
 from .internlm2_1_8b import CONFIG as internlm2_1_8b
+from .internvl2_26b import CONFIG as internvl2_26b
 from .mamba2_2_7b import CONFIG as mamba2_2_7b
+from .qwen1_5_110b import CONFIG as qwen1_5_110b
+from .stablelm_1_6b import CONFIG as stablelm_1_6b
+from .whisper_base import CONFIG as whisper_base
 from .zamba2_1_2b import CONFIG as zamba2_1_2b
 
 ARCHS: Dict[str, ArchConfig] = {
     c.name: c
-    for c in [internlm2_1_8b, gemma3_1b, granite_moe_3b_a800m, mamba2_2_7b,
-              zamba2_1_2b]
+    for c in [
+        granite_moe_3b_a800m,
+        deepseek_v2_236b,
+        internlm2_1_8b,
+        stablelm_1_6b,
+        gemma3_1b,
+        qwen1_5_110b,
+        internvl2_26b,
+        whisper_base,
+        mamba2_2_7b,
+        zamba2_1_2b,
+    ]
 }
 
 

@@ -22,7 +22,7 @@ from ._build import DTYPE_CODE, raise_on_launch_error, row_strides
 def flash_attention(
     q: torch.Tensor,  # [B, H, Sq, hd] bf16 | f32
     k: torch.Tensor,  # [B, KV, Sk, hd] q's dtype
-    v: torch.Tensor,  # [B, KV, Sk, hd]
+    v: torch.Tensor,  # [B, KV, Sk, vd], vd <= hd
     *,
     causal: bool = True,
     window: int = 0,  # 0 = no sliding window
@@ -31,7 +31,14 @@ def flash_attention(
     """K3: causal / sliding-window attention with grouped-query heads on
     the card.  The operands may be strided views (the model's transposed
     projections); the output is a [B, H, Sq, hd] view of a [B, Sq, H, hd]
-    buffer, so the caller's transpose back to [B, Sq, H·hd] is free."""
+    buffer, so the caller's transpose back to [B, Sq, H·hd] is free.
+
+    V may be narrower than q/k (MLA: q/k 192 wide, V 128), as the JAX
+    package's ``chunked_attention`` allows.  The kernel takes one head
+    width, so V is zero-padded to q's width, the scale stays
+    1/sqrt(q's width), and the output is the first ``vd`` columns: the
+    zero columns add nothing to the kept ones.  Reading only ``vd``
+    columns of V is later work (ROADMAP Queue 2)."""
     tensors = (q, k, v)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("flash attention kernel: every tensor must be on CUDA")
@@ -40,10 +47,13 @@ def flash_attention(
     if q.dtype not in DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention kernel: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; one of float32, bfloat16")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("flash attention kernel: q [B, H, Sq, hd], k and v "
-                         "[B, KV, Sk, hd] of one shape")
+    if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
+            or v.shape[:3] != k.shape[:3] or v.shape[3] > k.shape[3]):
+        raise ValueError("flash attention kernel: q [B, H, Sq, hd], k "
+                         "[B, KV, Sk, hd], and v of one shape with k but "
+                         "for a width vd <= hd")
     b, h, sq, hd = q.shape
+    vd = v.shape[3]
     _, kv, sk, k_hd = k.shape
     if k.shape[0] != b or k_hd != hd:
         raise ValueError("flash attention kernel: k/v batch or head dim "
@@ -59,6 +69,12 @@ def flash_attention(
     if window < 0 or q_offset < 0:
         raise ValueError("flash attention kernel: window and q_offset must "
                          "be >= 0")
+    if vd < hd:
+        if vd % 8:
+            raise ValueError(f"flash attention kernel: V width {vd} not a "
+                             "multiple of 8")
+        v = torch.nn.functional.pad(v, (0, hd - vd))
+        tensors = (q, k, v)
     strides = [row_strides(t, "flash attention kernel") for t in tensors]
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     out = out.transpose(1, 2)
@@ -73,7 +89,7 @@ def flash_attention(
         )
     raise_on_launch_error(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out if vd == hd else out[..., :vd]
 
 
 flash_attention.launches = 0

@@ -94,9 +94,10 @@ def paged_decode_attention_int8(
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                     chunk=512):
-    """[B, H, Sq, hd] attention over grouped-query [B, KV, Sk, hd] K/V
-    (K3).  ``chunk`` is the plain version's query block; the kernel
-    tiles on its own."""
+    """[B, H, Sq, hd] attention over grouped-query [B, KV, Sk, hd] K and
+    [B, KV, Sk, vd] V, vd <= hd (K3); the output is [B, H, Sq, vd].
+    ``chunk`` is the plain version's query block; the kernel tiles on
+    its own."""
     if _on_cpu(q):
         return ref.flash_attention_ref(
             q, k, v, causal=causal, window=window, q_offset=q_offset,

@@ -31,7 +31,7 @@ def repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
 def flash_attention_ref(
     q: torch.Tensor,  # [B, H, Sq, hd]
     k: torch.Tensor,  # [B, KV, Sk, hd]
-    v: torch.Tensor,
+    v: torch.Tensor,  # [B, KV, Sk, vd]: vd may be narrower (MLA)
     *,
     causal: bool = True,
     window: int = 0,  # 0 = no sliding window
@@ -42,7 +42,8 @@ def flash_attention_ref(
     block of ``chunk`` query rows at a time against the full masked K
     (peak memory O(chunk × Sk)).  Row i sits at position q_offset + i;
     key j is kept when j <= that position (causal) and it is less than
-    ``window`` behind (window > 0).  A row that keeps no key returns the
+    ``window`` behind (window > 0).  The scale is 1/sqrt(q's width) and
+    the output is V's width.  A row that keeps no key returns the
     mean of V over all Sk keys, as the Pallas kernel does
     (``repro.kernels.ref.flash_attention_ref`` returns 0 there)."""
     b, h, sq, hd = q.shape

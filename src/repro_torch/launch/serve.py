@@ -2,7 +2,10 @@
 
 Boots the multi-tenant engine (MURS admission by default; ``--fair`` for
 the stock baseline) on the smoke-size model and runs a synthetic
-two-tenant workload.  Runs on the card unless ``--device cpu``.
+two-tenant workload.  Runs on the card unless ``--device cpu``.  Every
+architecture of ``ARCHS`` is a choice; the two whose prefill needs
+front-end inputs (whisper-base, internvl2-26b) are refused with the
+engine's :class:`ExtraInputsNotServed` message and exit status 1.
 """
 
 import argparse
@@ -12,7 +15,12 @@ import torch
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.models import init_model
 from repro_torch.sched import FairPolicy, MursConfig, MursPolicy
-from repro_torch.serve import EngineConfig, Request, ServingEngine
+from repro_torch.serve import (
+    EngineConfig,
+    ExtraInputsNotServed,
+    Request,
+    ServingEngine,
+)
 from repro_torch.serve.kv_cache import kv_bytes_per_token
 
 
@@ -35,17 +43,20 @@ def main() -> None:
     cfg = get_arch(args.arch).smoke()
     params = init_model(cfg, 0, device=args.device)
     capacity = max(kv_bytes_per_token(cfg), 1.0) * args.pool_tokens
-    engine = ServingEngine(
-        cfg, params,
-        EngineConfig(
-            n_slots=args.slots,
-            max_seq=args.max_seq,
-            hbm_capacity_bytes=capacity,
-            policy=(FairPolicy() if args.fair
-                    else MursPolicy(MursConfig.for_serving(period=1.0))),
-            device=args.device,
-        ),
-    )
+    try:
+        engine = ServingEngine(
+            cfg, params,
+            EngineConfig(
+                n_slots=args.slots,
+                max_seq=args.max_seq,
+                hbm_capacity_bytes=capacity,
+                policy=(FairPolicy() if args.fair
+                        else MursPolicy(MursConfig.for_serving(period=1.0))),
+                device=args.device,
+            ),
+        )
+    except ExtraInputsNotServed as exc:
+        raise SystemExit(f"launch.serve: {exc}") from None
     n_a = args.requests // 2 + args.requests % 2
     for i in range(n_a):
         engine.submit(Request(f"A{i}", "A", list(range(10, 18)), 40))

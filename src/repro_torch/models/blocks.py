@@ -1,11 +1,11 @@
 """GQA attention block, full or sliding-window: init, full-sequence
-(prefill) and decode apply; the token-choice top-k MoE FFN, whose expert
-GEMMs run through ``kernels.ops.grouped_matmul`` (K5 on the card); and
-the Mamba-2 block, whose prefill scan runs through ``kernels.ops.ssd_scan``
-(K6 on the card).
-
-MLA, the other block type of the JAX package, is not ported yet;
-ROADMAP.md Queue 1 item 10 lists it.
+(prefill) and decode apply; MLA (deepseek-v2's multi-head latent
+attention), whose prefill runs through K3 with a V narrower than q/k and
+whose decode is the absorbed latent form in plain f32 torch (the JAX
+package has no kernel for it); the token-choice top-k MoE FFN, whose
+expert GEMMs run through ``kernels.ops.grouped_matmul`` (K5 on the card);
+and the Mamba-2 block, whose prefill scan runs through
+``kernels.ops.ssd_scan`` (K6 on the card).
 """
 
 from __future__ import annotations
@@ -18,12 +18,14 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kernel_ops
+from ..kernels.ref import NEG_INF
 from .layers import (
     apply_rope,
     chunked_attention,
     decode_attention,
     decode_attention_ring,
     dense_init,
+    rms_norm,
 )
 
 
@@ -128,6 +130,143 @@ def attention_decode(
     out = out.transpose(1, 2).reshape(b, 1, -1)
     y = torch.matmul(out, p["wo"])
     return y, (k_cache, v_cache)
+
+
+# ===================================================================== MLA
+def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> dict:
+    """deepseek-v2's MLA weights, in the JAX package's order and shapes:
+    low-rank q (``wq_a`` → norm → ``wq_b``), the joint KV latent plus the
+    shared rope key (``wkv_a``), its up-projection to per-head nope keys
+    and values (``wkv_b``), and ``wo``."""
+    m = cfg.mla
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        "wq_a": dense_init(gen, d, m.q_lora_rank, dtype, device),
+        "q_ln": torch.zeros(m.q_lora_rank, dtype=dtype, device=device),
+        "wq_b": dense_init(gen, m.q_lora_rank, h * qk_dim, dtype, device),
+        "wkv_a": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                            dtype, device),
+        "kv_ln": torch.zeros(m.kv_lora_rank, dtype=dtype, device=device),
+        "wkv_b": dense_init(gen, m.kv_lora_rank,
+                            h * (m.qk_nope_head_dim + m.v_head_dim), dtype,
+                            device),
+        "wo": dense_init(gen, h * m.v_head_dim, d, dtype, device),
+    }
+
+
+def _mla_q(p: dict, cfg: ArchConfig, x: torch.Tensor,
+           positions: torch.Tensor):
+    """x [B, S, d] → (q_nope [B, H, S, nope], roped q_rope [B, H, S,
+    rope]); ``positions`` broadcasts to [B, 1, S]."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q_lat = rms_norm(torch.matmul(x, p["wq_a"]), p["q_ln"], cfg.norm_eps)
+    q = torch.matmul(q_lat, p["wq_b"]).reshape(
+        b, s, cfg.n_heads, qk_dim
+    ).transpose(1, 2)
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    """x [B, S, d] → (normed latent [B, S, rank], roped shared key
+    [B, 1, S, rope])."""
+    m = cfg.mla
+    kv_a = torch.matmul(x, p["wkv_a"])
+    latent = rms_norm(kv_a[..., :m.kv_lora_rank], p["kv_ln"], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., m.kv_lora_rank:][:, None], positions,
+                        cfg.rope_theta)
+    return latent, k_rope
+
+
+def mla_forward(
+    p: dict,
+    cfg: ArchConfig,
+    x: torch.Tensor,
+    *,
+    q_offset: int = 0,
+    return_cache: bool = False,
+):
+    """MLA prefill: the latent expanded to per-head keys (nope + the
+    shared rope key, 192 wide at full width) and values (128 wide), then
+    causal attention through K3 with V narrower than q/k; with
+    ``return_cache`` also the cache — the latent [B, S, rank] and the
+    rope key [B, S, rope], not per-head K/V."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    positions = (q_offset + torch.arange(s, device=x.device))[None, None, :]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    latent, k_rope = _mla_latent(p, cfg, x, positions)
+    kv = torch.matmul(latent, p["wkv_b"]).reshape(
+        b, s, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim
+    ).transpose(1, 2)
+    k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([
+        k_nope,
+        k_rope.expand(b, cfg.n_heads, s, m.qk_rope_head_dim),
+    ], dim=-1)
+    out = chunked_attention(q, k, v, causal=True, q_offset=q_offset)
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    y = torch.matmul(out, p["wo"])
+    if return_cache:
+        return y, (latent, k_rope[:, 0])
+    return y
+
+
+def mla_decode(
+    p: dict,
+    cfg: ArchConfig,
+    x: torch.Tensor,
+    cache: Tuple[torch.Tensor, torch.Tensor],
+    pos: Union[int, torch.Tensor],
+    *,
+    rows: Optional[torch.Tensor] = None,
+):
+    """Absorbed-form MLA decode in f32: ``wkv_b``'s key half is folded
+    into the query and attention runs over the latent cache
+    [B, S_max, rank] and the rope-key cache [B, S_max, rope], both
+    written at ``pos`` (an int or a [B] tensor) IN PLACE, in every row or
+    only in ``rows``.  Plain torch on every device: the JAX package has
+    no kernel for it."""
+    m = cfg.mla
+    b = x.shape[0]
+    latent_cache, rope_cache = cache
+    pos_t = torch.as_tensor(pos, device=x.device).reshape(-1)
+    pos_b = pos_t.expand(b) if pos_t.numel() == 1 else pos_t
+    positions = pos_b.reshape(b, 1, 1) if pos_t.numel() > 1 else (
+        pos_t.reshape(1, 1, 1))
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)  # [B, H, 1, *]
+    latent_new, k_rope_new = _mla_latent(p, cfg, x, positions)
+    idx = torch.arange(b, device=x.device) if rows is None else rows
+    latent_cache[idx, pos_b[idx]] = latent_new[idx, 0]
+    rope_cache[idx, pos_b[idx]] = k_rope_new[idx, 0, 0]
+    wkv_b = p["wkv_b"].reshape(
+        m.kv_lora_rank, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim
+    )
+    w_k = wkv_b[..., :m.qk_nope_head_dim].float()  # [r, H, nope]
+    w_v = wkv_b[..., m.qk_nope_head_dim:].float()  # [r, H, v]
+    q_lat = torch.einsum("bhqn,rhn->bhqr", q_nope.float(), w_k)
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    lat = latent_cache.float()
+    logits = (
+        torch.einsum("bhqr,bsr->bhqs", q_lat, lat)
+        + torch.einsum("bhqe,bse->bhqs", q_rope.float(), rope_cache.float())
+    ) * scale
+    keep = (torch.arange(latent_cache.shape[1], device=x.device)[None, :]
+            <= pos_b[:, None])  # [B, S]
+    logits = torch.where(keep[:, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bhqr", probs, lat)
+    out = torch.einsum("bhqr,rhv->bhqv", ctx, w_v)  # [B, H, 1, v]
+    out = out.transpose(1, 2).reshape(b, 1, -1).to(x.dtype)
+    y = torch.matmul(out, p["wo"])
+    return y, (latent_cache, rope_cache)
 
 
 # ===================================================================== MoE

@@ -7,16 +7,22 @@ the pattern), suffix blocks are a list, zamba2's shared attention body
 is one (unstacked) ``shared_body``, and a cache is
 ``{"unit": {"b0": leaves}, "suffix": [...]}`` with leaves
 ``[reps, batch, ...]``: attention K/V ``[.., KV, max_seq, hd]`` in bf16,
-a Mamba block's conv tails ``[.., d_conv - 1, width]`` in bf16 and its
-SSD state ``[.., nh, hd, ds]`` in f32.  Where JAX scans over the stacked
-unit, the port loops over its leading axis.
+MLA's latent ``[.., max_seq, rank]`` and rope key ``[.., max_seq, rope]``
+in bf16, a Mamba block's conv tails ``[.., d_conv - 1, width]`` in bf16
+and its SSD state ``[.., nh, hd, ds]`` in f32.  Where JAX scans over the
+stacked unit, the port loops over its leading axis.
 
-Stacks of ``attn`` and ``local_attn`` (sliding-window) blocks, each with
-a dense gated MLP or a token-choice MoE FFN, of ``mamba`` (Mamba-2)
-blocks and of ``shared_attn`` positions (zamba2's adapters around the one
-shared attention body) run here; a local block's decode cache is an
-O(window) ring, as in the JAX package.  Any other architecture raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+Every architecture of the JAX package runs here: stacks of ``attn`` and
+``local_attn`` (sliding-window) blocks with GQA or MLA attention, each
+with a dense gated MLP or a token-choice MoE FFN (with shared experts),
+of ``mamba`` (Mamba-2) blocks and of ``shared_attn`` positions (zamba2's
+adapters around the one shared attention body); a local block's decode
+cache is an O(window) ring.  Two front ends take ``extra`` inputs as the
+JAX package's do: a vision stub (internvl2) projects ``patch_embeds``
+and places them before the tokens, and an encoder-decoder (whisper) runs
+its encoder over ``frame_embeds`` and cross-attends every decoder block
+to K/V built once from the encoder output, carried in the caches as
+``cross_kv``.
 """
 
 from __future__ import annotations
@@ -27,10 +33,12 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kernel_ops
+from ..tree import tree_leaves, tree_map
 from . import blocks
 from .layers import (
     apply_mlp,
     apply_rope,
+    chunked_attention,
     dense_init,
     embed_init,
     init_mlp,
@@ -40,28 +48,24 @@ from .layers import (
 PyTree = Any
 
 
-#: the block types the port runs
-SUPPORTED_BLOCKS = ("attn", "local_attn", "mamba", "shared_attn")
+#: the block types of the JAX package's block programs
+BLOCK_TYPES = ("attn", "local_attn", "mamba", "shared_attn")
 
 
-def _require_supported(cfg: ArchConfig) -> None:
-    """The port runs GQA attention stacks, full and sliding-window, with
-    dense or MoE FFNs, and Mamba-2 stacks with or without zamba2's shared
-    attention (ROADMAP Queue 1 item 10 ports the rest of the zoo)."""
+def _check_stack(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` on a block program no architecture has: an
+    empty stack, an unknown block type, or Mamba blocks without SSM
+    dimensions (or SSM dimensions without Mamba blocks)."""
     stack = list(cfg.block_pattern) + list(cfg.suffix_blocks)
     if (
-        cfg.mla is not None
-        or cfg.enc_layers
-        or cfg.frontend not in (None, "none")
-        or not stack
-        or any(bt not in SUPPORTED_BLOCKS for bt in stack)
+        not stack
+        or any(bt not in BLOCK_TYPES for bt in stack)
         or ("mamba" in stack) != (cfg.ssm is not None)
     ):
-        raise NotImplementedError(
-            f"{cfg.name}: only stacks of 'attn', 'local_attn', 'mamba' "
-            "and 'shared_attn' blocks (dense or MoE FFN) are ported; MLA, "
-            "encoder-decoder and vision stacks wait for ROADMAP Queue 1 "
-            "item 10"
+        raise ValueError(
+            f"{cfg.name}: block program {stack} with ssm={cfg.ssm!r}: "
+            f"blocks must be of {BLOCK_TYPES}, and 'mamba' blocks come "
+            "with SSM dimensions"
         )
 
 
@@ -107,7 +111,10 @@ def _init_block(gen, cfg: ArchConfig, btype: str, dtype, device) -> dict:
         p["out_adapter"] = dense_init(gen, cfg.d_model, cfg.d_model, dtype,
                                       device)
         return p
-    p["attn"] = blocks.init_attention(gen, cfg, dtype, device)
+    if cfg.mla is not None:
+        p["attn"] = blocks.init_mla(gen, cfg, dtype, device)
+    else:
+        p["attn"] = blocks.init_attention(gen, cfg, dtype, device)
     p["ln2"] = torch.zeros(cfg.d_model, dtype=dtype, device=device)
     if cfg.moe is None:
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
@@ -131,11 +138,39 @@ def _init_shared_body(gen, cfg: ArchConfig, dtype, device) -> dict:
     }
 
 
-def _stack(trees: List[PyTree]) -> PyTree:
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _init_encoder(gen, cfg: ArchConfig, dtype, device) -> dict:
+    """whisper's encoder: ``enc_layers`` non-causal attention + MLP
+    layers, stacked, and a final norm."""
+    def layer():
+        return {
+            "ln1": torch.zeros(cfg.d_model, dtype=dtype, device=device),
+            "attn": blocks.init_attention(gen, cfg, dtype, device),
+            "ln2": torch.zeros(cfg.d_model, dtype=dtype, device=device),
+            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
+        }
+
+    return {
+        "layers": _stacked(layer, cfg.enc_layers),
+        "final_ln": torch.zeros(cfg.d_model, dtype=dtype, device=device),
+    }
+
+
+def _stacked(make, reps: int) -> PyTree:
+    """``reps`` trees from ``make()``, in call order, stacked on a new
+    leading axis.  Each tree is copied into the stack as soon as it is
+    made and freed before the next is made, so the peak is the stack and
+    one tree (internvl2's 48 layers are 37 GB of bf16: a list of them and
+    their stack would not fit one card)."""
+    tree = make()
+    out = tree_map(lambda t: torch.empty((reps,) + t.shape, dtype=t.dtype,
+                                         device=t.device), tree)
+    for r in range(reps):
+        if tree is None:
+            tree = make()
+        for o, t in zip(tree_leaves(out), tree_leaves(tree)):
+            o[r].copy_(t)
+        tree = t = None
+    return out
 
 
 def init_model(
@@ -149,20 +184,17 @@ def init_model(
     ``device``), in the JAX package's tree layout.  The numbers differ
     from ``jax.random``'s: to compare the two, carry the JAX parameters
     across with :func:`repro_torch.models.convert.params_from_numpy`."""
-    _require_supported(cfg)
+    _check_stack(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     reps = cfg.resolved_pattern_repeats
     params: Dict[str, Any] = {
         "embed": {"tokens": embed_init(gen, cfg.vocab, cfg.d_model, dtype, dev)},
-        "layers": _stack([
-            {
-                f"b{i}": _init_block(gen, cfg, bt, dtype, dev)
-                for i, bt in enumerate(cfg.block_pattern)
-            }
-            for _ in range(reps)
-        ]),
+        "layers": _stacked(lambda: {
+            f"b{i}": _init_block(gen, cfg, bt, dtype, dev)
+            for i, bt in enumerate(cfg.block_pattern)
+        }, reps),
         "suffix": [
             _init_block(gen, cfg, bt, dtype, dev) for bt in cfg.suffix_blocks
         ],
@@ -174,6 +206,21 @@ def init_model(
         )
     if "shared_attn" in tuple(cfg.block_pattern) + tuple(cfg.suffix_blocks):
         params["shared_body"] = _init_shared_body(gen, cfg, dtype, dev)
+    if cfg.frontend == "vision_stub":
+        params["vision_proj"] = dense_init(gen, cfg.d_model, cfg.d_model,
+                                           dtype, dev)
+    if cfg.enc_layers:
+        params["encoder"] = _init_encoder(gen, cfg, dtype, dev)
+        params["audio_proj"] = dense_init(gen, cfg.d_model, cfg.d_model,
+                                          dtype, dev)
+        # cross-attention weights per decoder block of the unit
+        params["cross"] = _stacked(lambda: {
+            f"b{i}": {
+                "ln_x": torch.zeros(cfg.d_model, dtype=dtype, device=dev),
+                "attn": blocks.init_attention(gen, cfg, dtype, dev),
+            }
+            for i in range(len(cfg.block_pattern))
+        }, reps)
     return params
 
 
@@ -185,9 +232,10 @@ def init_cache(
     device: Union[str, torch.device] = "cuda",
 ) -> PyTree:
     """Zeroed decode caches: {unit: {b<i>: leaves}, suffix: [...]} —
-    attention (k, v) in bf16; a Mamba block's three bf16 conv tails and
-    its f32 SSD state."""
-    _require_supported(cfg)
+    attention (k, v) in bf16, MLA's (latent, rope key) in bf16; a Mamba
+    block's three bf16 conv tails and its f32 SSD state.  An
+    encoder-decoder's ``cross_kv`` is not here: ``prefill`` builds it."""
+    _check_stack(cfg)
     dev = resolve_device(device)
     reps = cfg.resolved_pattern_repeats
 
@@ -206,6 +254,13 @@ def init_cache(
                             ssm.d_state),
                     dtype=torch.float32, device=dev,
                 ),
+            )
+        if cfg.mla is not None and btype in ("attn", "local_attn"):
+            m = cfg.mla
+            return (
+                torch.zeros(lead + (batch, max_seq, m.kv_lora_rank), **bf16),
+                torch.zeros(lead + (batch, max_seq, m.qk_rope_head_dim),
+                            **bf16),
             )
         # sliding-window layers keep an O(window) RING buffer, not O(seq)
         seq = _cache_len(cfg, btype, max_seq)
@@ -233,10 +288,13 @@ def _cache_len(cfg: ArchConfig, btype: str, max_seq: int) -> int:
 
 
 def _layers(cfg: ArchConfig, params, caches=None) -> Iterator[Tuple]:
-    """(block type, block params, block cache) in execution order: the
-    unit's blocks once per repeat (their leaves indexed at the repeat),
-    then the suffix.  Cache leaves are views, so writes land in
-    ``caches``."""
+    """(block type, block params, block cache, cross-attention params) in
+    execution order: the unit's blocks once per repeat (their leaves
+    indexed at the repeat), then the suffix.  Cache leaves are views, so
+    writes land in ``caches``.  The cross-attention params (whisper's
+    decoder) are those of the unit block at that repeat, None elsewhere,
+    as the JAX package cross-attends only in its scanned unit."""
+    cross = params.get("cross")
     for r in range(cfg.resolved_pattern_repeats):
         for i, btype in enumerate(cfg.block_pattern):
             key = f"b{i}"
@@ -244,9 +302,11 @@ def _layers(cfg: ArchConfig, params, caches=None) -> Iterator[Tuple]:
             c = None
             if caches is not None:
                 c = tuple(leaf[r] for leaf in caches["unit"][key])
-            yield btype, p, c
+            pc = None if cross is None else _index(cross[key], r)
+            yield btype, p, c, pc
     for j, (btype, p) in enumerate(zip(cfg.suffix_blocks, params["suffix"])):
-        yield btype, p, (caches["suffix"][j] if caches is not None else None)
+        c = caches["suffix"][j] if caches is not None else None
+        yield btype, p, c, None
 
 
 def _index(tree: PyTree, r: int) -> PyTree:
@@ -282,48 +342,136 @@ def _ffn(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     return y
 
 
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as ``jnp.einsum``
+    computes a mixed-dtype product."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.to(dt))
+
+
+def _extra(cfg: ArchConfig, extra: Optional[Dict[str, torch.Tensor]],
+           key: str) -> torch.Tensor:
+    if not extra or key not in extra:
+        raise ValueError(
+            f"{cfg.name}: prefill needs extra[{key!r}] (its "
+            f"{'vision' if key == 'patch_embeds' else 'audio'} front end's "
+            "embeddings)"
+        )
+    return extra[key]
+
+
+def encoder_forward(cfg: ArchConfig, params,
+                    frames: torch.Tensor) -> torch.Tensor:
+    """whisper's encoder over (stub) frame embeddings [B, T, d]: the
+    audio projection, then non-causal attention (K3 on the card) and the
+    MLP per layer, then the final norm."""
+    enc = params["encoder"]
+    x = _project(frames, params["audio_proj"]).to(params["audio_proj"].dtype)
+    for r in range(cfg.enc_layers):
+        p = _index(enc["layers"], r)
+        x = x + blocks.attention_forward(
+            p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), causal=False
+        )
+        x = x + apply_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return rms_norm(x, enc["final_ln"], cfg.norm_eps)
+
+
+def _encode_cross_kv(cfg: ArchConfig, params, enc_out: torch.Tensor):
+    """Cross-attention K/V [B, KV, T, hd] from the encoder output, with
+    the FIRST decoder block's ``wk``/``wv``: as in the JAX package, one
+    K/V serves every decoder layer."""
+    pc = _index(params["cross"]["b0"], 0)
+    b, t, _ = enc_out.shape
+    hd = cfg.head_dim
+    k = torch.matmul(enc_out, pc["attn"]["wk"]).reshape(
+        b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = torch.matmul(enc_out, pc["attn"]["wv"]).reshape(
+        b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+    return k, v
+
+
+def _cross_attend(pc: dict, cfg: ArchConfig, x: torch.Tensor,
+                  ctx_kv) -> torch.Tensor:
+    """whisper's decoder cross-attention: the block's own ``wq``/``wo``
+    over the shared encoder K/V, non-causal through K3 (at Sq = 1 in a
+    decode step), added to the residual."""
+    k, v = ctx_kv
+    h = rms_norm(x, pc["ln_x"], cfg.norm_eps)
+    b, s, _ = h.shape
+    q = torch.matmul(h, pc["attn"]["wq"]).reshape(
+        b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    out = chunked_attention(q, k, v, causal=False)
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return x + torch.matmul(out, pc["attn"]["wo"])
+
+
 def prefill(
     cfg: ArchConfig,
     params,
     tokens: torch.Tensor,  # [B, S]
     *,
+    extra: Optional[Dict[str, torch.Tensor]] = None,
     max_seq: Optional[int] = None,
 ):
     """Forward over the prompt; returns (last-position logits [B, 1, V],
-    caches with the seq axis padded to ``max_seq``)."""
-    _require_supported(cfg)
-    b, s = tokens.shape
-    max_seq = max_seq or s
+    caches with the seq axis padded to ``max_seq``).
+
+    A vision-stub model (internvl2) takes ``extra["patch_embeds"]``
+    [B, N, d], projected and placed before the tokens, so the caches
+    hold N + S positions; an encoder-decoder (whisper) takes
+    ``extra["frame_embeds"]`` [B, T, d], and its caches carry the
+    cross-attention K/V as ``cross_kv`` for :func:`decode_step`."""
+    _check_stack(cfg)
     x = _embed(params, tokens)
+    cross_kv = None
+    if cfg.frontend == "vision_stub":
+        vis = _project(_extra(cfg, extra, "patch_embeds"),
+                       params["vision_proj"]).to(x.dtype)
+        x = torch.cat([vis, x], dim=1)
+    if cfg.enc_layers:
+        enc_out = encoder_forward(cfg, params,
+                                  _extra(cfg, extra, "frame_embeds"))
+        cross_kv = _encode_cross_kv(cfg, params, enc_out)
+    s = x.shape[1]
+    max_seq = max_seq or s
     kvs = []
-    for btype, p, _ in _layers(cfg, params):
+    for btype, p, _, pc in _layers(cfg, params):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        window = _window(cfg, btype)
         if btype == "mamba":
-            # conv tails and state have no seq axis: no padding
             y, cache = blocks.mamba_forward(p["mamba"], cfg, h,
                                             return_cache=True)
             x = x + y
-            kvs.append(cache)
-            continue
-        if btype == "shared_attn":
-            x, (k, v) = _shared_attn_full(p, cfg, params["shared_body"], x, h)
+        elif btype == "shared_attn":
+            x, cache = _shared_attn_full(p, cfg, params["shared_body"], x, h)
         else:
-            window = _window(cfg, btype)
-            a, (k, v) = blocks.attention_forward(
-                p["attn"], cfg, h, window=window, return_cache=True
-            )
+            if cfg.mla is not None:
+                a, cache = blocks.mla_forward(p["attn"], cfg, h,
+                                              return_cache=True)
+            else:
+                a, cache = blocks.attention_forward(
+                    p["attn"], cfg, h, window=window, return_cache=True
+                )
             x = x + a
             x = x + _ffn(p, cfg, x)
-        window = _window(cfg, btype)
-        seq = _cache_len(cfg, btype, max_seq)
-        if window is not None and s > seq:
-            k, v = _to_ring(k, window), _to_ring(v, window)
-        elif seq > s:
-            k = torch.nn.functional.pad(k, (0, 0, 0, seq - s))
-            v = torch.nn.functional.pad(v, (0, 0, 0, seq - s))
-        kvs.append((k, v))
+        if pc is not None:
+            x = _cross_attend(pc, cfg, x, cross_kv)
+        if btype != "mamba":
+            # conv tails and state have no seq axis: no padding.  The seq
+            # axis is -2 of K/V [B, KV, S, hd] and of MLA's [B, S, *]
+            ring = window is not None and cfg.mla is None
+            seq = _cache_len(cfg, btype, max_seq) if ring else max_seq
+            if ring and s > seq:
+                cache = tuple(_to_ring(c, window) for c in cache)
+            elif seq > s:
+                cache = tuple(torch.nn.functional.pad(c, (0, 0, 0, seq - s))
+                              for c in cache)
+        kvs.append(cache)
     logits = _unembed(cfg, params, x[:, -1:])
-    return logits, _caches_from_layers(cfg, kvs)
+    caches = _caches_from_layers(cfg, kvs)
+    if cross_kv is not None:
+        caches["cross_kv"] = cross_kv
+    return logits, caches
 
 
 def _shared_attn_full(p: dict, cfg: ArchConfig, body: dict,
@@ -374,24 +522,26 @@ def decode_step(
     """One decode step; returns (logits [B, 1, V], caches).
 
     The caches are updated in place (and returned): the new token's K/V
-    land at ``pos`` of each row, and a Mamba block's conv tails and state
-    advance, in every row or only in ``rows`` when given.  An MoE
-    FFN dispatches each row as its own capacity group, as the JAX engine's
-    per-slot vmapped step does (this is the engine's dense and
-    continuation step), so rows never take capacity from one another;
+    (or MLA latent and rope key) land at ``pos`` of each row, and a Mamba
+    block's conv tails and state advance, in every row or only in
+    ``rows`` when given.  With ``cross_kv`` in the caches (whisper) every
+    decoder block of the unit cross-attends to it.  An MoE FFN dispatches
+    each row as its own capacity group, as the JAX engine's per-slot
+    vmapped step does (this is the engine's dense and continuation
+    step), so rows never take capacity from one another;
     ``repro.models.decode_step`` on a batch dispatches it as one group,
     as :func:`decode_step_paged` does here.
     """
-    _require_supported(cfg)
+    _check_stack(cfg)
     x = _embed(params, tokens)
-    for btype, p, cache in _layers(cfg, params, caches):
+    cross_kv = caches.get("cross_kv")
+    for btype, p, cache, pc in _layers(cfg, params, caches):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if btype == "mamba":
             y, _ = blocks.mamba_decode(p["mamba"], cfg, h, cache, pos,
                                        rows=rows)
             x = x + y
-            continue
-        if btype == "shared_attn":
+        elif btype == "shared_attn":
             body = params["shared_body"]
             inner = torch.matmul(h, p["in_adapter"])
             g = rms_norm(inner, body["ln1"], cfg.norm_eps)
@@ -401,13 +551,19 @@ def decode_step(
             inner = inner + apply_mlp(
                 body["mlp"], rms_norm(inner, body["ln2"], cfg.norm_eps))
             x = x + torch.matmul(inner, p["out_adapter"])
-            continue
-        a, _ = blocks.attention_decode(
-            p["attn"], cfg, h, cache, pos, window=_window(cfg, btype),
-            rows=rows,
-        )
-        x = x + a
-        x = x + _ffn(p, cfg, x, per_row=True)
+        else:
+            if cfg.mla is not None:
+                a, _ = blocks.mla_decode(p["attn"], cfg, h, cache, pos,
+                                         rows=rows)
+            else:
+                a, _ = blocks.attention_decode(
+                    p["attn"], cfg, h, cache, pos,
+                    window=_window(cfg, btype), rows=rows,
+                )
+            x = x + a
+            x = x + _ffn(p, cfg, x, per_row=True)
+        if cross_kv is not None and pc is not None:
+            x = _cross_attend(pc, cfg, x, cross_kv)
     return _unembed(cfg, params, x), caches
 
 
@@ -465,7 +621,7 @@ def decode_step_paged(
     (token 0, last) included, exactly as the JAX package does.
     Returns (logits [B, 1, V], caches).
     """
-    _require_supported(cfg)
+    _check_stack(cfg)
     if not paged_decode_supported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the paged path serves stacks of full-attention "
@@ -493,7 +649,7 @@ def decode_step_paged(
     s_slot = page_src_slot.long()
     s_idx = page_src_idx.long()
 
-    for _, p, (kc, vc) in _layers(cfg, params, caches):
+    for _, p, (kc, vc), _ in _layers(cfg, params, caches):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         ap = p["attn"]
         q, k_new, v_new = blocks._qkv(ap, cfg, h)  # [B, {H,KV}, 1, hd]

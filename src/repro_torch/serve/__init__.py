@@ -5,6 +5,7 @@ traffic generators, and the typed :class:`ServeReport` (DESIGN.md
 from .cluster import ClusterConfig, ServingCluster
 from .engine import (
     EngineConfig,
+    ExtraInputsNotServed,
     MigrationTicket,
     PrecopySnapshot,
     Request,
@@ -51,6 +52,7 @@ __all__ = [
     "ClusterConfig",
     "DEMOTED",
     "EngineConfig",
+    "ExtraInputsNotServed",
     "FAILED",
     "FrontDoor",
     "FrontDoorConfig",

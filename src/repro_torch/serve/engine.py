@@ -57,6 +57,12 @@ the first uncached token.  Any later append into a shared page goes
 through copy-on-write, so a shared page is never mutated.  Cold cached
 prefixes evict under pressure in LRU order crossed with the policy's
 ``cache_pressure`` hint (MURS: low-usage-rate tenants first).
+
+A model whose prefill needs front-end inputs (``extra``: internvl2's
+patch embeddings, whisper's frame embeddings) is refused at construction
+with :class:`ExtraInputsNotServed`: a request carries only tokens, and
+the JAX engine's prefill passes no ``extra`` either (it fails at the
+first prefill; ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -95,6 +101,17 @@ from repro_torch.serve.report import (
 )
 from repro_torch.serve.tiers import TierConfig, wire_bytes_for
 from repro_torch.tree import tree_leaves, tree_map
+
+
+class ExtraInputsNotServed(NotImplementedError):
+    """The engine cannot serve a model whose prefill needs ``extra``
+    inputs (a vision or audio front end): requests carry tokens only.
+    The JAX engine's jitted prefill (``src/repro/serve/engine.py``) calls
+    the model without ``extra`` and raises ``TypeError`` at the first
+    prefill of such a model (ROADMAP Queue 3, "The reference engine
+    cannot serve a model whose prefill needs extra"); the port refuses
+    it up front.  Run such a model through ``models.prefill(...,
+    extra=...)`` and ``models.decode_step``."""
 
 
 @dataclass
@@ -383,6 +400,14 @@ class ServingEngine:
     :class:`~repro_torch.sched.protocol.SchedulingPolicy`."""
 
     def __init__(self, cfg: ArchConfig, params, ecfg: EngineConfig) -> None:
+        if cfg.frontend == "vision_stub" or cfg.enc_layers:
+            raise ExtraInputsNotServed(
+                f"{cfg.name}: its prefill needs extra inputs "
+                f"(frontend={cfg.frontend!r}, enc_layers={cfg.enc_layers}), "
+                "which requests do not carry; see ROADMAP Queue 3, \"The "
+                "reference engine cannot serve a model whose prefill needs "
+                "extra\""
+            )
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg

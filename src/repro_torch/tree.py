@@ -28,36 +28,41 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
     """``(leaves, treedef)``, as ``jax.tree_util.tree_flatten`` orders
     them; :func:`tree_unflatten` inverts it."""
     leaves: List[Any] = []
-
-    def walk(x):
-        if x is None:
-            return None
-        if isinstance(x, dict):
-            keys = sorted(x)
-            return (dict, keys, [walk(x[k]) for k in keys])
-        if isinstance(x, (list, tuple)):
-            return (type(x), [walk(t) for t in x])
-        leaves.append(x)
-        return "*"
-
-    treedef = walk(tree)
+    treedef = _walk(tree, leaves)
     return leaves, treedef
+
+
+def _walk(x: Any, leaves: List[Any]) -> TreeDef:
+    """Append ``x``'s leaves to ``leaves``; return its treedef.  A
+    module-level function, not a closure: a recursive closure is a
+    reference cycle that would keep every leaf alive until the cycle
+    collector runs (gigabytes of weights at full width)."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        keys = sorted(x)
+        return (dict, keys, [_walk(x[k], leaves) for k in keys])
+    if isinstance(x, (list, tuple)):
+        return (type(x), [_walk(t, leaves) for t in x])
+    leaves.append(x)
+    return "*"
 
 
 def tree_unflatten(treedef: TreeDef, leaves: List[Any]) -> Any:
     """Rebuild the structure ``treedef`` describes from ``leaves``."""
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(d):
-        if d is None:
-            return None
-        if d == "*":
-            return next(it)
-        if d[0] is dict:
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        return d[0](build(c) for c in d[1])
 
-    return build(treedef)
+def _build(d: TreeDef, it) -> Any:
+    """The tree ``d`` describes, its leaves drawn from ``it`` (a
+    module-level function for the reason :func:`_walk` gives)."""
+    if d is None:
+        return None
+    if d == "*":
+        return next(it)
+    if d[0] is dict:
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    return d[0](_build(c, it) for c in d[1])
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:

@@ -283,3 +283,28 @@ def test_restart_manager_equals_reference(tmp_path):
     tree, step = tm.resume(like)
     assert step == 5 and tree["w"].dtype == torch.bfloat16
     assert tree["w"].float().tolist() == [1.0, 2.0, 3.0]
+
+
+def test_tree_helpers_leave_no_reference_cycle():
+    """Flattening and rebuilding keep no leaf alive: a recursive closure
+    would hold every leaf in a reference cycle until the cycle collector
+    ran — the weights of a whole model, at full width, for ``init_model``
+    and the engine's cache walks."""
+    import gc
+    import weakref
+
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+    gc.disable()
+    try:
+        t = torch.zeros(4)
+        alive = weakref.ref(t)
+        tree = {"b": [t, None], "a": (torch.ones(2),)}
+        leaves, treedef = tree_flatten(tree)
+        back = tree_unflatten(treedef, leaves)
+        assert back["b"][0] is t and back["b"][1] is None
+        assert tree_leaves(tree)[1] is t  # keys sorted: "a" first
+        del t, tree, leaves, back
+        assert alive() is None
+    finally:
+        gc.enable()

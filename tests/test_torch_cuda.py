@@ -296,6 +296,41 @@ def test_flash_kernel_matches_plain(dev, dtype, b, h, kv, sq, sk, hd, causal,
                                rtol=0)
 
 
+# (B, H, KV, Sq, Sk, hd, vd, causal, q_offset): V narrower than q/k —
+# deepseek-v2's MLA prefill (128 heads, q/k 192 wide, V 128) at a
+# 160-token prompt, and small odd shapes with grouped heads and an offset
+NARROW_V_SHAPES = [
+    (1, 128, 128, 160, 160, 192, 128, True, 0),
+    (2, 6, 3, 37, 50, 24, 16, True, 13),
+    (1, 4, 2, 65, 65, 192, 128, False, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,vd,causal,q_offset",
+                         NARROW_V_SHAPES)
+def test_flash_kernel_with_narrow_v_matches_plain(dev, dtype, b, h, kv, sq,
+                                                  sk, hd, vd, causal,
+                                                  q_offset):
+    """K3 with V zero-padded to q's width in the wrapper: one launch, the
+    output V's width, within the plain version's tolerance."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(sq + hd + vd)
+    q = _rand(gen, dev, dt, b, h, sq, hd)
+    k = _rand(gen, dev, dt, b, kv, sk, hd)
+    v = _rand(gen, dev, dt, b, sk, kv, vd).transpose(1, 2)
+    kw = dict(causal=causal, q_offset=q_offset)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **kw)
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == (b, h, sq, vd)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), plain.float(), atol=_atol(plain),
+                               rtol=0)
+
+
 # (B, H, KV, S, hd, window): chip_smoke.py's K4 shapes — the
 # chunked-prefill continuation, the dense batch, a gemma3 global layer,
 # the dense batch with a window — and odd widths
@@ -528,6 +563,94 @@ def test_grouped_matmul_wrapper_rejects_what_the_kernel_cannot_take(dev):
         grouped_matmul(x, w.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="CUDA"):
         grouped_matmul(x.cpu(), w)
+
+
+# (E, C, D, F): deepseek-v2's expert GEMMs — the dense decode's C 32 and a
+# prefill's C 8, gate/up and down (each weight 2.5 GB in bf16)
+DEEPSEEK_GMM_SHAPES = [
+    (160, 32, 5120, 1536), (160, 32, 1536, 5120), (160, 8, 5120, 1536),
+    (160, 8, 1536, 5120),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,d,f", DEEPSEEK_GMM_SHAPES)
+def test_grouped_matmul_at_160_experts(dev, dtype, e, c, d, f):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(e * c + d + f)
+    x = torch.randn(e, c, d, generator=g, device=dev).to(dt)
+    w = (torch.randn(e, d, f, generator=g, device=dev) / math.sqrt(d)).to(dt)
+    out = grouped_matmul(x, w)
+    plain = ref.grouped_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and out.shape == (e, c, f)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), plain.float(), atol=_atol(plain),
+                               rtol=0)
+    del x, w, out, plain
+    torch.cuda.empty_cache()
+
+
+def test_deepseek_engine_runs_mla_through_k3_and_k5(dev):
+    """deepseek-v2 (smoke) on the engine's dense path on the card: K3 once
+    per layer of every prefill (V narrower than q/k), K5 three times per
+    layer of every model call, and no K1, K2 or K4 (MLA decodes in its
+    absorbed form, plain torch)."""
+    ops.reset_launch_counts()
+    cfg = ARCHS["deepseek-v2-236b"].smoke()
+    eng = ServingEngine(
+        cfg, init_model(cfg, 0, device=dev),
+        EngineConfig(n_slots=3, max_seq=64, hbm_capacity_bytes=1e9,
+                     policy=MursPolicy(MursConfig.for_serving(period=1.0)),
+                     device=str(dev)),
+    )
+    for i in range(3):
+        eng.submit(Request(f"A{i}", "A", list(range(10, 20 + i)), 8))
+    eng.run(max_ticks=600)
+    assert len(eng.completed) == 3 and not eng.failed
+    assert eng.paged_decode_ticks == 0
+    assert flash_attention.launches > 0
+    assert flash_attention.launches % cfg.n_layers == 0
+    assert decode_attention.launches == 0
+    assert paged_decode.paged_decode_attention.launches == 0
+    assert grouped_matmul.launches > 3 * flash_attention.launches
+
+
+@pytest.mark.parametrize("name", ["whisper-base", "internvl2-26b"])
+def test_frontend_models_through_the_kernels(dev, name):
+    """whisper (encoder, cross-attention at Sq = 1) and internvl2 (patch
+    embeddings before the tokens) at smoke width: ``prefill(extra=...)``
+    and 3 decode steps through K3/K4 against the plain versions on the
+    card, bf16 logits within 0.1 (the limit of the CPU parity tests)."""
+    from repro_torch.models import decode_step, prefill
+
+    cfg = ARCHS[name].smoke()
+    params = init_model(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    key = "frame_embeds" if cfg.enc_layers else "patch_embeds"
+    n = 40 if cfg.enc_layers else cfg.vision_tokens
+    extra = {key: torch.randn(1, n, cfg.d_model, generator=gen,
+                              device=dev).bfloat16()}
+    toks = torch.randint(0, cfg.vocab, (1, 12), generator=gen, device=dev)
+    n0 = 9 + (0 if cfg.enc_layers else n)
+
+    def run():
+        lg, c = prefill(cfg, params, toks[:, :9], extra=extra,
+                        max_seq=n0 + 3)
+        out = [lg[:, -1]]
+        for i in range(3):
+            lg, c = decode_step(cfg, params, toks[:, 9 + i:10 + i], c,
+                                n0 + i)
+            out.append(lg[:, 0])
+        return torch.cat(out).float()
+
+    ops.reset_launch_counts()
+    kern = run()
+    assert flash_attention.launches > 0 and decode_attention.launches > 0
+    with ops.plain_on_card():
+        plain = run()
+    assert torch.isfinite(kern).all()
+    torch.testing.assert_close(kern, plain, atol=0.1, rtol=0)
 
 
 @pytest.mark.parametrize("paged", [True, False])

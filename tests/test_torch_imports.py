@@ -3,8 +3,10 @@
 own codec).
 
 In a fresh interpreter with ``jax`` and ``msgpack`` blocked, every
-``repro_torch`` module is imported, two small engines (internlm2 and
-zamba2) run on the CPU, and a front door over a two-replica cluster
+``repro_torch`` module is imported, three small engines (internlm2,
+zamba2 and deepseek-v2's MLA) run on the CPU, whisper and internvl2 run
+a prefill with their front-end inputs and a decode step, the paper's
+simulator runs a job, and a front door over a two-replica cluster
 serves a short trace while writing a KV checkpoint, crashing a replica
 and restoring it — some imports happen lazily at call time, so the run
 is part of the check — and then no ``repro`` module may be loaded.
@@ -46,6 +48,14 @@ def test_every_module_is_listed():
         "repro_torch.configs.granite_moe_3b_a800m",
         "repro_torch.configs.mamba2_2_7b",
         "repro_torch.configs.zamba2_1_2b",
+        "repro_torch.configs.deepseek_v2_236b",
+        "repro_torch.configs.stablelm_1_6b",
+        "repro_torch.configs.qwen1_5_110b",
+        "repro_torch.configs.whisper_base",
+        "repro_torch.configs.internvl2_26b",
+        "repro_torch.core.tasks",
+        "repro_torch.core.service",
+        "repro_torch.core.spark_sim",
         "repro_torch.models.transformer",
         "repro_torch.serve.engine",
         "repro_torch.launch.serve",
@@ -97,6 +107,34 @@ def test_port_imports_and_serves_without_jax_or_repro():
         )
         eng.submit(Request("z0", "A", list(range(5, 40)), 3))
         assert eng.run(max_ticks=50).completed == 1
+        # MLA with routed and shared experts on the engine's dense path;
+        # whisper and internvl2 through prefill(extra=...) and decode
+        import torch
+        from repro_torch.models import decode_step, prefill
+        cfg = ARCHS["deepseek-v2-236b"].smoke()
+        eng = ServingEngine(
+            cfg, init_model(cfg, 0, device="cpu"),
+            EngineConfig(n_slots=2, max_seq=32, hbm_capacity_bytes=1e9,
+                         device="cpu"),
+        )
+        eng.submit(Request("d0", "A", list(range(5, 12)), 3))
+        assert eng.run(max_ticks=50).completed == 1
+        for name, key, n in (("whisper-base", "frame_embeds", 10),
+                             ("internvl2-26b", "patch_embeds", 8)):
+            cfg = ARCHS[name].smoke()
+            p = init_model(cfg, 0, device="cpu")
+            extra = {{key: torch.zeros(1, n, cfg.d_model,
+                                      dtype=torch.bfloat16)}}
+            _, c = prefill(cfg, p, torch.ones(1, 4, dtype=torch.int32),
+                           extra=extra, max_seq=16)
+            lg, _ = decode_step(cfg, p, torch.ones(1, 1, dtype=torch.int32),
+                                c, 12)
+            assert bool(torch.isfinite(lg).all())
+        # the paper's simulator
+        from repro_torch.core import MursConfig as CoreMurs
+        from repro_torch.core.spark_sim import make_grep, run_service
+        m = run_service([make_grep()], heap_gb=4.0, murs=CoreMurs())
+        assert m.jobs["grep"].finish_time > 0
         # the front door over a cluster that checkpoints, crashes, restores
         import tempfile
         from repro_torch.serve import (

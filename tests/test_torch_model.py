@@ -195,14 +195,18 @@ def test_quantize_pool_int8_matches():
 
 
 def test_unsupported_arch_raises():
-    """A stack the port has not ported yet (an encoder-decoder here, and
-    Mamba-2 blocks without their SSM dims) raises, naming the ROADMAP
-    item that ports it."""
+    """Every architecture of the zoo is ported, so only a block program no
+    architecture has raises: Mamba-2 blocks without their SSM dims, or an
+    unknown block type.  An encoder-decoder stack now builds its
+    encoder."""
     base = TARCHS["internlm2-1.8b"].smoke()
-    for cfg in (dataclasses.replace(base, enc_layers=2),
-                dataclasses.replace(base, block_pattern=("mamba",))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for cfg in (dataclasses.replace(base, block_pattern=("mamba",)),
+                dataclasses.replace(base, block_pattern=("conv",))):
+        with pytest.raises(ValueError, match="block program"):
             tm.init_model(cfg, 0, device="cpu")
+    enc = tm.init_model(dataclasses.replace(base, enc_layers=2), 0,
+                        device="cpu")
+    assert enc["encoder"]["layers"]["ln1"].shape[0] == 2
 
 
 def test_cuda_request_without_card_raises():

@@ -538,9 +538,16 @@ def test_engine_tokens_equal_or_near_tie(params, engines):
 
 
 def test_unsupported_moe_neighbours_still_raise():
-    """MoE is admitted; an MoE stack with MLA attention is not."""
+    """MoE is admitted, and so is an MoE stack with MLA attention
+    (deepseek-v2's; ``tests/test_torch_zoo.py`` holds it to JAX): its
+    blocks carry MLA weights and the MoE FFN.  An MoE stack of Mamba
+    blocks without SSM dims still raises."""
     from repro_torch.configs import MLAConfig
 
     cfg = dataclasses.replace(TCFG, mla=MLAConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_model(cfg, 0, device="cpu")
+    blk = tm.init_model(cfg, 0, device="cpu")["layers"]["b0"]
+    assert {"wq_a", "wkv_a", "wkv_b", "wo"} <= set(blk["attn"])
+    assert "moe" in blk
+    with pytest.raises(ValueError, match="block program"):
+        tm.init_model(dataclasses.replace(TCFG, block_pattern=("mamba",)), 0,
+                      device="cpu")
