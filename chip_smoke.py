@@ -9,7 +9,7 @@ Phases, each printing one JSON line (or one per kernel or run):
 
 1. ``device`` — the card as ``nvidia-smi`` names it, its power limit, and
    the torch/CUDA versions;
-2. ``build`` — nvcc builds the five CUDA sources of
+2. ``build`` — nvcc builds the six CUDA sources of
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once);
 3. ``kernel`` — each kernel against its plain PyTorch version on the card,
    in the working dtype, on inputs drawn from a seeded generator: K1/K2
@@ -127,17 +127,39 @@ Phases, each printing one JSON line (or one per kernel or run):
    F32_LOGIT_ATOL; 256 patch embeddings) at the model level,
    ``prefill(extra=...)`` of a 64-token prompt and 8 decode steps, with
    their K3/K4 launch counts.
+15. training — ``train-kernel``: K3's backward (``flash_attention_bwd``,
+   after K3's forward saving its log-sum-exp) against autodiff of the
+   plain version in f32 and bf16 at internlm2's (B 4, S 2,048), gemma3's
+   local, whisper's encoder and MLA's shapes, and K5's two backward
+   products (dX = dY W^T, dW = X^T dY) at granite-moe's training
+   capacity, timed against their bounds, the plain versions and SDPA's
+   backward (with the mask and with its causal flag) or ``torch.bmm``;
+   ``train-internlm2``: the port's ``Trainer`` on internlm2-1.8b at full
+   width and depth (B 4 × S 2,048 of ``SHAPES["train_4k"]``, 4 steps of 2
+   microbatches, a checkpoint every 2 steps in the JAX package's file
+   format), a second Trainer resuming from step 4 to 6, and a 2-step
+   int8 error-feedback gradient-compression run: every loss finite, K3
+   forward 2 × 24 × microbatches × steps (the remat recomputes it), its
+   backward 24 × microbatches × steps, no decode kernel, with step
+   seconds, tokens/s and peak memory; ``train-granite``: granite-moe at
+   full width and 4 of 32 layers, 2 steps, K5 12 times per MoE layer of
+   every microbatch (3 forward, 3 recomputed, 6 backward) and every
+   launched K5 shape held to the plain version; ``train-reference``: the
+   loss and every parameter leaf's gradient through the kernels against
+   inside ``ops.plain_on_card`` (internlm2 and granite at 2 layers,
+   gemma3's 6-layer unit, whisper-base whole; f32 and bf16), and a
+   mamba2 train step refused (K6 has no backward kernel yet).
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1.  Without a
 CUDA device, or without the port's sources beside this file, it exits
 non-zero and prints no result.
 
-``--only kernels`` (phase 3) or ``--only reference`` (phase 7), or both,
-stops after those phases and prints neither the kernels line nor the
-result line.  Copied into the root of another checkout, such as a parent
-commit's, the script so holds that tree's package to its own inputs,
-timer and checks.
+``--only kernels`` (phase 3), ``--only reference`` (phase 7) or ``--only
+train`` (phase 15), or several, stops after those phases and prints
+neither the kernels line nor the result line.  Copied into the root of
+another checkout, such as a parent commit's, the script so holds that
+tree's package to its own inputs, timer and checks.
 """
 
 import contextlib
@@ -365,6 +387,70 @@ SIM_EXPECTED = {
             "eec19e0c511b1fad50120f67f22630d0")),
     ),
 }
+
+
+# ---------------------------------------------------------------- training
+#: K3's backward against autodiff of its plain version.  f32: summation
+#: order only, over up to 1,500 keys or a group's heads x Sq rows whose
+#: terms cancel: TRAIN_F32_ATOL x the largest |gradient|.  bf16: the
+#: kernel rounds P and dS to bf16 as tensor-core operands
+#: (FlashAttention-2's choice) and D from the rounded output; emulated on
+#: a CPU at these masks that moves a gradient by at most one bf16 ulp of
+#: the largest |gradient|: the limit is BWD_BF16_ULPS ulps
+TRAIN_F32_ATOL = 1e-4
+BWD_BF16_ULPS = 2
+#: (name, B, H, KV, S, hd, vd, causal, window): K3's backward at the
+#: training paths' shapes — internlm2's (the train-internlm2 phase's
+#: microbatch of 2 is half this batch), gemma3's local layer, whisper's
+#: encoder, deepseek-v2's MLA (V 128 padded to q/k's 192)
+TRAIN_FLASH_CASES = [
+    ("internlm2", 4, 16, 8, 2048, 128, 128, True, 0),
+    ("gemma3_local", 2, 4, 1, 2048, 256, 256, True, 512),
+    ("whisper_encoder", 2, 8, 8, 1500, 64, 64, False, 0),
+    ("mla", 2, 128, 128, 160, 192, 128, True, 0),
+]
+#: train-internlm2: internlm2-1.8b at full width and depth, SHAPES
+#: ["train_4k"] cut from a global batch of 256 to 4 and from 4,096
+#: positions to 2,048 (memory and time on one card)
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_STEPS, TRAIN_RESUME_STEPS, TRAIN_MICRO, TRAIN_CKPT_EVERY = 4, 6, 2, 2
+TRAIN_COMPRESSION_STEPS = 2
+#: a full-width (params, AdamWState) file is 19 GB; zlib at the JAX
+#: package's level 6 compresses f32 moments at about 19 MB/s (measured on
+#: a CPU), minutes a file, so the phase sets the checkpoint module's
+#: ZLIB_LEVEL to store them (level 0: the same file format, readable by
+#: either package)
+TRAIN_CKPT_ZLIB_LEVEL = 0
+#: train-granite: granite-moe-3b-a800m at full width, 4 of its 32 layers
+#: (time and memory: 32 layers of 40 experts train well past this
+#: script's budget), the same batch and sequence, 2 steps
+GRANITE_TRAIN_LAYERS = 4
+GRANITE_TRAIN_STEPS = 2
+#: train-reference: the loss and every parameter leaf's gradient through
+#: the kernels against inside ``ops.plain_on_card``, per leaf
+#: ||g - g_plain|| / ||g_plain||, at full width and cut depth, a batch of
+#: REF_TRAIN_BATCH x REF_TRAIN_SEQ, in three precisions:
+#: - f32 with ``bf16_grad`` the identity: the kernels differ from the
+#:   plain versions only in the order of f32 sums, so every leaf is held
+#:   to TRAIN_REF_EXACT_RTOL, as the CPU test of the same case is.  A
+#:   subtly lossy backward (a bf16 rounding, a dropped block) shows here.
+#: - f32: every block boundary rounds the cotangent to bf16
+#:   (``bf16_grad``), where a last-bit difference of the f32 sums flips a
+#:   rounding; the flips compound with depth.  The card read 1.5e-4
+#:   (internlm2), 2.2e-3 (gemma3), 1.7e-4 (granite) and 1.9e-3 (whisper):
+#:   each limit is about 4x its reading.
+#: - bf16: the card read 0.011, 0.021, 0.095 and 0.021; the limits are
+#:   about 2-3x that.  granite's is widest: a bf16 rounding difference in
+#:   a router logit changes a token's top-8 experts, which moves the
+#:   router's and the norms' gradients (its CPU bf16-against-f32 spread
+#:   was 0.215); the exact f32 case above holds K5's backward tight.
+#: A missing or wrong gradient reads near 1.
+REF_TRAIN_BATCH, REF_TRAIN_SEQ = 2, 640
+TRAIN_REF_EXACT_RTOL = 1e-4
+TRAIN_REF_F32_RTOL = {"internlm2-1.8b": 6e-4, "gemma3-1b": 8e-3,
+                      "granite-moe-3b-a800m": 6e-4, "whisper-base": 8e-3}
+TRAIN_REF_BF16_RTOL = {"internlm2-1.8b": 0.035, "gemma3-1b": 0.062,
+                       "granite-moe-3b-a800m": 0.2, "whisper-base": 0.038}
 
 
 class CheckFailed(Exception):
@@ -2596,6 +2682,490 @@ def zoo_phases(torch, ARCHS, init_model, ops, calls, ref, gmm_checked):
     return stablelm, deepseek
 
 
+# ---------------------------------------------------------------- training
+def train_kernel_phase(torch, F, ref, timer, granite_cfg):
+    """K3's backward and K5's two backward products against autodiff of
+    their plain versions: K3 at TRAIN_FLASH_CASES in f32 and bf16, timed in
+    bf16; K5's dX = dY W^T and dW = X^T dY at granite's training shapes
+    (the expert capacity of two 2,048-token sequences, gate/up and down),
+    each on its transposed contiguous copy as the backward makes it.
+    Returns the kernels-line entry of K3's backward: its internlm2 case,
+    with the largest bf16 error of every case."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd,
+    )
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    from repro_torch.models.blocks import _capacity
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 20)
+
+    def rand(dtype, *shape):
+        return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
+
+    def plain_grads(fn, dout, *inputs):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        return out, leaves, torch.autograd.grad(out, leaves, dout,
+                                                retain_graph=True)
+
+    results = {}
+    worst = 0.0
+    for name, b, h, kv, s, hd, vd, causal, window in TRAIN_FLASH_CASES:
+        kw = dict(causal=causal, window=window)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q = rand(dtype, b, h, s, hd)
+            k = rand(dtype, b, kv, s, hd)
+            v = rand(dtype, b, s, kv, vd).transpose(1, 2)
+            dout = rand(dtype, b, s, h, vd).transpose(1, 2)
+            # as ops pads a narrow V for the kernel, and the output's slice
+            # pads its gradient
+            vp = F.pad(v, (0, hd - vd)) if vd < hd else v
+            dp = F.pad(dout, (0, hd - vd)) if vd < hd else dout
+            out, lse = flash_attention(q, k, vp, return_lse=True, **kw)
+            got = flash_attention_bwd(q, k, vp, out, dp, lse, **kw)
+            got = (got[0], got[1], got[2][..., :vd])
+            pout, leaves, want = plain_grads(
+                lambda *t: ref.flash_attention_ref(*t, **kw), dout, q, k, v)
+            torch.cuda.synchronize()
+            key = str(dtype).replace("torch.", "")
+            errs[key] = {}
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                check(torch.isfinite(g.float()).all().item(),
+                      f"flash_attention_bwd {name} {key}: non-finite {gname}")
+                err = (g.float() - w.float()).abs().max().item()
+                big = w.float().abs().max().item()
+                atol = (TRAIN_F32_ATOL * max(big, 1.0)
+                        if dtype == torch.float32
+                        else BWD_BF16_ULPS * bf16_ulp(w))
+                check(err <= atol, f"flash_attention_bwd {name} {key} "
+                      f"{gname}: max err {err} > {atol}")
+                errs[key][gname] = {"max_abs_err": err, "tolerance": atol}
+            if dtype == torch.float32:
+                del q, k, v, dout, vp, dp, out, lse, got, pout, leaves, want
+                continue
+            worst = max([worst] + [e["max_abs_err"]
+                                   for e in errs[key].values()])
+            pairs, empty = kept_pairs(s, s, causal, window, 0)
+            # q, o, dO, k, v read and dq, dk, dv written once, the LSE read
+            n_bytes = (2 * (b * h * s * (2 * hd + 2 * vd)
+                            + 2 * b * kv * s * (hd + vd)) + 4 * b * h * s)
+            # S and dP recomputed, dV, dQ, dK: 2 (3 hd + 2 vd) a kept pair
+            flops = 2 * (3 * hd + 2 * vd) * b * h * pairs
+            bound_ms, bound_by = bound(n_bytes, flops, dtype, torch)
+            kr = ref.repeat_kv(k, h // kv).detach().clone().requires_grad_()
+            vr = ref.repeat_kv(v, h // kv).detach().clone().requires_grad_()
+            qs = q.detach().clone().requires_grad_()
+            qpos = torch.arange(s, device=DEV)[:, None]
+            kpos = torch.arange(s, device=DEV)[None, :]
+            mask = None
+            if causal or window:
+                mask = (kpos <= qpos) if causal else torch.ones(
+                    s, s, dtype=torch.bool, device=DEV)
+                if window:
+                    mask = mask & (qpos - kpos < window)
+            lib = F.scaled_dot_product_attention(qs, kr, vr, attn_mask=mask)
+            late = timer.late
+            r = {
+                "phase": "train-kernel", "name": "flash_attention_bwd",
+                "case": name,
+                "shape": {"B": b, "H": h, "KV": kv, "S": s, "hd": hd,
+                          "vd": vd, "causal": causal, "window": window},
+                "kept_pairs": pairs, "rows_without_key": empty,
+                "errors": errs, "max_abs_err": max(
+                    e["max_abs_err"] for e in errs[key].values()),
+                "ms": time_ms(torch, lambda: flash_attention_bwd(
+                    q, k, vp, out, dp, lse, **kw), timer),
+                "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    pout, leaves, dout, retain_graph=True), timer),
+                "library_masked_ms": time_ms(
+                    torch, lambda: torch.autograd.grad(
+                        lib, (qs, kr, vr), dout, retain_graph=True), timer),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": n_bytes, "flops": flops,
+            }
+            # library_ms: the faster of SDPA's masked backward and, where
+            # the mask is plain causal, its is_causal one
+            r["library_ms"] = r["library_masked_ms"]
+            if causal and not window:
+                lib_c = F.scaled_dot_product_attention(qs, kr, vr,
+                                                       is_causal=True)
+                r["library_causal_ms"] = time_ms(
+                    torch, lambda: torch.autograd.grad(
+                        lib_c, (qs, kr, vr), dout, retain_graph=True), timer)
+                r["library_ms"] = min(r["library_ms"], r["library_causal_ms"])
+                del lib_c
+            r["late_windows"] = timer.late - late
+            emit(with_rates(r))
+            results[name] = r
+            del q, k, v, dout, vp, dp, out, lse, got, pout, leaves, want
+            del kr, vr, qs, lib
+            torch.cuda.empty_cache()
+
+    e, c = granite_cfg.moe.num_experts, 2 * _capacity(granite_cfg, TRAIN_SEQ)
+    dm, ff = granite_cfg.d_model, granite_cfg.moe.d_ff_expert
+    for case, d, f in (("gate_up", dm, ff), ("down", ff, dm)):
+        dtype = torch.bfloat16
+        x = rand(dtype, e, c, d)
+        w = (rand(torch.float32, e, d, f) / math.sqrt(d)).to(dtype)
+        dy = rand(dtype, e, c, f)
+        _, _, (pdx, pdw) = plain_grads(ref.grouped_matmul_ref, dy, x, w)
+        products = {
+            "dX": (lambda: grouped_matmul(dy, w.transpose(1, 2).contiguous()),
+                   lambda: ref.grouped_matmul_ref(dy, w.transpose(1, 2)),
+                   lambda: torch.bmm(dy, w.transpose(1, 2)), pdx,
+                   (e, c, f, d)),
+            "dW": (lambda: grouped_matmul(x.transpose(1, 2).contiguous(), dy),
+                   lambda: ref.grouped_matmul_ref(x.transpose(1, 2), dy),
+                   lambda: torch.bmm(x.transpose(1, 2), dy), pdw,
+                   (e, d, c, f)),
+        }
+        for prod, (kernel, plain, library, want, shape) in products.items():
+            got = kernel()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            atol = bf16_ulp(want)  # both sum in f32 and round once
+            check(err <= atol, f"grouped_matmul backward {case} {prod}: "
+                  f"max err {err} > {atol}")
+            ee, cc, dd, fff = shape
+            n_bytes = 2 * (ee * cc * dd + ee * dd * fff + ee * cc * fff)
+            flops = 2 * ee * cc * dd * fff
+            bound_ms, bound_by = bound(n_bytes, flops, dtype, torch)
+            late = timer.late
+            r = {"phase": "train-kernel", "name": "grouped_matmul",
+                 "case": f"{case}_{prod}", "shape": list(shape),
+                 "note": "ms includes the transposed contiguous copy the "
+                         "backward makes",
+                 "max_abs_err": err, "tolerance_bf16": atol,
+                 "ms": time_ms(torch, kernel, timer),
+                 "plain_ms": time_ms(torch, plain, timer),
+                 "library_ms": time_ms(torch, library, timer),
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "bytes": n_bytes, "flops": flops}
+            r["late_windows"] = timer.late - late
+            emit(with_rates(r))
+        del x, w, dy, pdx, pdw, got, want, products
+    torch.cuda.empty_cache()
+    return {**results["internlm2"], "max_abs_err": worst}
+
+
+def checkpoint_meta(path):
+    """The ``meta`` map of a checkpoint file, from its first bytes
+    inflated, after checking that they open the JAX package's container:
+    a map of ``meta`` then ``leaves``, an array of ``n_leaves``."""
+    import zlib
+
+    from repro_torch.checkpoint import _msgpack
+
+    with open(path, "rb") as f:
+        blob = f.read(1 << 20)
+    if blob[:4] == b"\x28\xb5\x2f\xfd":  # zstd, where zstandard exists
+        import zstandard
+
+        raw = zstandard.ZstdDecompressor().decompressobj().decompress(blob)
+    else:
+        raw = zlib.decompressobj().decompress(blob)
+    head = _msgpack.header("map", 2) + _msgpack.packb("meta")
+    check(raw.startswith(head), f"{path}: not the JAX package's container")
+    reader = _msgpack._Reader(raw[len(head):])
+    meta = reader.obj()
+    rest = bytes(raw[len(head) + reader.pos:])
+    check(rest.startswith(_msgpack.packb("leaves") + _msgpack.header(
+        "array", meta["n_leaves"])), f"{path}: no leaves array after meta")
+    return meta
+
+
+def free_memory(torch):
+    """Collect cycles and return cached blocks before a model loads."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_run(torch, ops, cfg, tcfg, phase, extra, smi):
+    """One ``Trainer.run`` of ``cfg`` (TRAIN_BATCH x TRAIN_SEQ) with every
+    launch counter zeroed just before and read just after; emits the
+    run's line (steps, losses, step seconds, tokens/s, peak memory) and
+    checks that every loss is finite."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.train import Trainer
+
+    free_memory(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the main path's counts start here
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, SHAPES["train_4k"], tcfg, batch=TRAIN_BATCH,
+                      seq=TRAIN_SEQ)
+    out = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    log = out["log"]
+    step_s = [m["step_time_s"] for m in log]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    r = {"phase": phase, "arch": cfg.name, "layers": cfg.n_layers, **extra,
+         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+         "microbatches": 1 if tcfg.grad_compression else tcfg.microbatches,
+         "steps": [m["step"] for m in log],
+         "losses": [m["loss"] for m in log],
+         "grad_norms": [m["grad_norm"] for m in log],
+         "step_s": step_s, "tokens_per_s": [tokens / t for t in step_s],
+         "wall_s": wall,
+         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+         "compressed_wire_bytes": trainer.compressed_wire_bytes,
+         "launches": launches, "nvidia_smi": smi}
+    emit(r)
+    check(all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]),
+          f"{phase} {extra}: a non-finite loss or grad norm")
+    del trainer
+    free_memory(torch)
+    return r
+
+
+def check_train_launches(r, n_attn, n_moe, steps, micro, phase):
+    """K3 forward twice per attention layer of every microbatch (the
+    unit's remat recomputes it), its backward once; K5 three times per
+    MoE layer forward, three in the recompute and six backward; no
+    decode kernel and no K6."""
+    la = r["launches"]
+    want = {
+        "flash_attention": 2 * n_attn * micro * steps,
+        "flash_attention_bwd": n_attn * micro * steps,
+        "grouped_matmul": 12 * n_moe * micro * steps,
+        "paged_decode_attention": 0, "paged_decode_attention_int8": 0,
+        "decode_attention": 0, "ssd_scan": 0,
+    }
+    for name, n in want.items():
+        check(la[name] == n, f"{phase}: {name} launched {la[name]} times, "
+              f"predicted {n}")
+
+
+def train_internlm2(torch, ARCHS, ops, smi):
+    """internlm2-1.8b at full width and depth through the port's Trainer:
+    TRAIN_STEPS steps of TRAIN_MICRO microbatches with a checkpoint every
+    TRAIN_CKPT_EVERY; a second Trainer on the same directory that resumes
+    from the last checkpoint and runs to TRAIN_RESUME_STEPS; a run with
+    int8 error-feedback gradient compression (one microbatch, as the JAX
+    package's compressed step; no checkpoint).  Returns the three runs."""
+    import dataclasses
+    import os
+    import shutil
+
+    from repro_torch.checkpoint import checkpointing
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import TrainerConfig
+
+    checkpointing.ZLIB_LEVEL = TRAIN_CKPT_ZLIB_LEVEL  # this process's files
+    cfg = ARCHS["internlm2-1.8b"]
+    root = ROOT / "build" / "chip_train"
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt_dir = root / "internlm2"
+    tcfg = TrainerConfig(
+        steps=TRAIN_STEPS, microbatches=TRAIN_MICRO,
+        ckpt_every=TRAIN_CKPT_EVERY, log_every=1, seed=SEED,
+        ckpt_dir=str(ckpt_dir), device=DEV,
+        opt=AdamWConfig(warmup_steps=1, total_steps=TRAIN_RESUME_STEPS))
+    n = cfg.n_layers
+    phase = "train-internlm2"
+    first = train_run(torch, ops, cfg, tcfg, phase, {"run": "first"}, smi)
+    check(first["steps"] == list(range(1, TRAIN_STEPS + 1)),
+          f"{phase}: logged steps {first['steps']}")
+    check_train_launches(first, n, 0, TRAIN_STEPS, TRAIN_MICRO, phase)
+    names = sorted(os.listdir(ckpt_dir))
+    want = [f"ckpt_{s}.ckpt" for s in range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1,
+                                             TRAIN_CKPT_EVERY)]
+    check(names == sorted(want), f"{phase}: checkpoints {names}")
+    last = ckpt_dir / f"ckpt_{TRAIN_STEPS}.ckpt"
+    meta = checkpoint_meta(last)
+    check(meta["step"] == TRAIN_STEPS and (meta["n_leaves"] - 1) % 3 == 0,
+          f"{phase}: checkpoint meta {meta}: not (params, AdamWState) at "
+          f"step {TRAIN_STEPS}")
+    emit({"phase": phase, "checkpoint": str(last.relative_to(ROOT)),
+          "meta": meta, "bytes": last.stat().st_size,
+          "zlib_level": TRAIN_CKPT_ZLIB_LEVEL})
+    for name in names[:-1]:  # the resume reads the newest; keep the disk
+        os.remove(ckpt_dir / name)
+    second = train_run(torch, ops, cfg, dataclasses.replace(
+        tcfg, steps=TRAIN_RESUME_STEPS), phase, {"run": "resume"}, smi)
+    check(second["steps"] == list(range(TRAIN_STEPS + 1,
+                                        TRAIN_RESUME_STEPS + 1)),
+          f"{phase}: the second trainer logged {second['steps']}, not a "
+          f"resume from step {TRAIN_STEPS}")
+    check_train_launches(second, n, 0, TRAIN_RESUME_STEPS - TRAIN_STEPS,
+                         TRAIN_MICRO, phase)
+    shutil.rmtree(ckpt_dir)
+    third = train_run(torch, ops, cfg, dataclasses.replace(
+        tcfg, steps=TRAIN_COMPRESSION_STEPS, grad_compression=True,
+        ckpt_every=10**9, ckpt_dir=str(root / "compressed")), phase,
+        {"run": "grad_compression"}, smi)
+    check_train_launches(third, n, 0, TRAIN_COMPRESSION_STEPS, 1, phase)
+    check(third["compressed_wire_bytes"] is not None
+          and cfg.param_count() < third["compressed_wire_bytes"]
+          < 1.01 * cfg.param_count(),
+          f"{phase}: compressed_wire_bytes {third['compressed_wire_bytes']} "
+          f"for {cfg.param_count()} parameters")
+    shutil.rmtree(root, ignore_errors=True)
+    return [first, second, third]
+
+
+def train_granite(torch, ARCHS, ops, ref, smi, gmm_checked):
+    """granite-moe-3b-a800m at full width, GRANITE_TRAIN_LAYERS layers,
+    GRANITE_TRAIN_STEPS steps of TRAIN_MICRO microbatches: K5 forward,
+    recomputed and backward, counted; every K5 shape it launches (the
+    backward's transposed ones too) held to the plain version."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import TrainerConfig
+
+    cfg = dataclasses.replace(ARCHS["granite-moe-3b-a800m"],
+                              n_layers=GRANITE_TRAIN_LAYERS,
+                              pattern_repeats=None)
+    root = ROOT / "build" / "chip_train"
+    tcfg = TrainerConfig(
+        steps=GRANITE_TRAIN_STEPS, microbatches=TRAIN_MICRO,
+        ckpt_every=10**9, log_every=1, seed=SEED,
+        ckpt_dir=str(root / "granite"), device=DEV,
+        opt=AdamWConfig(warmup_steps=1, total_steps=GRANITE_TRAIN_STEPS))
+    with gmm_shapes(ops) as shapes:
+        r = train_run(torch, ops, cfg, tcfg, "train-granite", {}, smi)
+    n = cfg.n_layers
+    check_train_launches(r, n, n, GRANITE_TRAIN_STEPS, TRAIN_MICRO,
+                         "train-granite")
+    launched = set(shapes)
+    for e, c, d, f, dtype, _ in shapes:  # dX = dY W^T, dW = X^T dY
+        launched.add((e, c, f, d, dtype, (c * f, f, 1)))
+        launched.add((e, d, c, f, dtype, (d * c, c, 1)))
+    check_launched_gmm_shapes(torch, ref, launched, gmm_checked,
+                              "train-granite")
+    shutil.rmtree(root, ignore_errors=True)
+    return r
+
+
+def _leaf_names(tree, prefix=""):
+    """Each leaf's path, in ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in _leaf_names(t, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def train_reference(torch, ARCHS, init_model, ops):
+    """The loss and every parameter leaf's gradient through the kernels
+    against inside ``ops.plain_on_card``, at full width: internlm2 and
+    granite-moe at 2 layers, gemma3's 6-layer unit (5 local, 1 global),
+    whisper-base whole; in f32 parameters with ``bf16_grad`` the identity,
+    in f32 and in bf16.  Every leaf has a non-zero gradient on both paths,
+    within TRAIN_REF_EXACT_RTOL, TRAIN_REF_F32_RTOL or TRAIN_REF_BF16_RTOL.
+    Then a mamba2 train step on the card raises: K6 has no backward kernel
+    yet."""
+    import dataclasses
+
+    import repro_torch.models.transformer as transformer
+    from repro_torch.configs import SHAPES
+    from repro_torch.data.pipeline import DataConfig, _host_batch
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    cuts = [
+        dataclasses.replace(ARCHS["internlm2-1.8b"], n_layers=2,
+                            pattern_repeats=None),
+        dataclasses.replace(ARCHS["gemma3-1b"], n_layers=6, pattern_repeats=1,
+                            suffix_blocks=()),
+        dataclasses.replace(ARCHS["granite-moe-3b-a800m"], n_layers=2,
+                            pattern_repeats=None),
+        ARCHS["whisper-base"],
+    ]
+    boundary = transformer.bf16_grad
+    cases = (("float32_exact", torch.float32, TRAIN_REF_EXACT_RTOL),
+             ("float32", torch.float32, None),
+             ("bfloat16", torch.bfloat16, None))
+    for cfg in cuts:
+        for label, dtype, tol in cases:
+            free_memory(torch)
+            params = init_params(torch, cfg, init_model, dtype=dtype)
+            batch = {k: torch.from_numpy(v).to(DEV) for k, v in _host_batch(
+                cfg, SHAPES["train_4k"], DataConfig(seed=SEED), 0,
+                batch=REF_TRAIN_BATCH, seq=REF_TRAIN_SEQ).items()}
+            if label == "float32_exact":
+                transformer.bf16_grad = lambda x: x
+            try:
+                ops.reset_launch_counts()
+                loss, grads = value_and_grad(cfg, params, batch)
+                torch.cuda.synchronize()
+                launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+                with unmoved_counters(ops, f"train-reference {cfg.name}"):
+                    p_loss, p_grads = value_and_grad(cfg, params, batch)
+                torch.cuda.synchronize()
+            finally:
+                transformer.bf16_grad = boundary
+            names = _leaf_names(params)
+            errs = {}
+            for name, g, w in zip(names, tree_leaves(grads),
+                                  tree_leaves(p_grads)):
+                g, w = g.float(), w.float()
+                check(bool(torch.isfinite(g).all()),
+                      f"train-reference {cfg.name}: {name} non-finite")
+                gn, wn = g.norm().item(), w.norm().item()
+                check(gn > 0 and wn > 0, f"train-reference {cfg.name} "
+                      f"{label}: {name} has a zero gradient ({gn}, {wn})")
+                errs[name] = (g - w).norm().item() / wn
+            worst = max(errs, key=errs.get)
+            if tol is None:
+                tol = (TRAIN_REF_F32_RTOL if dtype == torch.float32
+                       else TRAIN_REF_BF16_RTOL)[cfg.name]
+            emit({"phase": "train-reference", "arch": cfg.name,
+                  "layers": cfg.n_layers, "dtype": label,
+                  "batch": REF_TRAIN_BATCH, "seq": REF_TRAIN_SEQ,
+                  "loss": loss.item(), "plain_loss": p_loss.item(),
+                  "leaves": len(errs), "max_rel_err": errs[worst],
+                  "worst_leaf": worst, "tolerance": tol,
+                  "rel_err": errs, "launches": launches})
+            check(launches["flash_attention_bwd"] > 0,
+                  f"train-reference {cfg.name}: K3's backward never ran")
+            check(cfg.moe is None or launches["grouped_matmul"] > 0,
+                  f"train-reference {cfg.name}: K5 never ran")
+            check(errs[worst] <= tol, f"train-reference {cfg.name} {label}: "
+                  f"{worst} gradient {errs[worst]} from the plain one > {tol}")
+            del params, grads, p_grads, batch, loss, p_loss
+    cfg = ARCHS["mamba2-2.7b"].smoke()
+    params = init_model(cfg, SEED, device=DEV)
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in _host_batch(
+        cfg, SHAPES["train_4k"], DataConfig(seed=SEED), 0, batch=2,
+        seq=64).items()}
+    try:
+        value_and_grad(cfg, params, batch)
+        raised = None
+    except NotImplementedError as exc:
+        raised = str(exc)
+    emit({"phase": "train-reference", "arch": cfg.name, "raised": raised})
+    check(raised is not None and "item 11b" in raised,
+          "train-reference: a mamba2 train step on the card did not raise "
+          "the K6 backward's NotImplementedError")
+    del params, batch
+    free_memory(torch)
+
+
+def train_phases(torch, F, ARCHS, init_model, ops, ref, smi, gmm_checked):
+    """train-kernel, train-internlm2, train-granite and train-reference;
+    returns (K3 backward's kernels-line entry, the training runs)."""
+    free_memory(torch)
+    timer = Timer(torch)
+    kernel = train_kernel_phase(torch, F, ref, timer,
+                                ARCHS["granite-moe-3b-a800m"])
+    del timer
+    runs = train_internlm2(torch, ARCHS, ops, smi)
+    runs.append(train_granite(torch, ARCHS, ops, ref, smi, gmm_checked))
+    train_reference(torch, ARCHS, init_model, ops)
+    return kernel, runs
+
+
 def _map_tensors(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tensors(v, fn) for k, v in tree.items()}
@@ -2609,12 +3179,12 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
-        "--only", nargs="+", choices=("kernels", "reference"),
+        "--only", nargs="+", choices=("kernels", "reference", "train"),
         help="run only these phases after the build: every kernel phase, "
-             "or internlm2's and gemma3's reference phases; prints no "
-             "kernels or result line (to hold another tree's package, "
-             "such as a parent commit's, to this script's inputs and "
-             "checks)")
+             "internlm2's and gemma3's reference phases, or the training "
+             "phases; prints no kernels or result line (to hold another "
+             "tree's package, such as a parent commit's, to this script's "
+             "inputs and checks)")
     only = set(ap.parse_args(argv).only or ())
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -2675,6 +3245,9 @@ def main(argv=None) -> int:
                 phase(torch, cfg, params, ops)
                 del params
                 torch.cuda.empty_cache()
+        if "train" in only:
+            train_phases(torch, F, ARCHS, init_model, ops, ref, smi,
+                         gmm_checked if "kernels" in only else set())
         return 0
 
     simulator_phase()
@@ -2725,6 +3298,8 @@ def main(argv=None) -> int:
         del params
         torch.cuda.empty_cache()
     zoo = zoo_phases(torch, ARCHS, init_model, ops, calls, ref, gmm_checked)
+    kres["flash_attention_bwd"], train_runs = train_phases(
+        torch, F, ARCHS, init_model, ops, ref, smi, gmm_checked)
     emit_ssd_lines(torch, ssd_lines)
 
     replaces = {
@@ -2732,6 +3307,10 @@ def main(argv=None) -> int:
         "paged_decode_attention_int8":
             "src/repro/kernels/paged_decode.py:132",
         "flash_attention": "src/repro/kernels/flash_attention.py:82",
+        # no Pallas twin: XLA differentiates the jnp twin of K3
+        "flash_attention_bwd": "src/repro/models/layers.py:101 "
+                               "chunked_attention (its autodiff; no Pallas "
+                               "kernel)",
         "decode_attention": "src/repro/kernels/decode_attention.py:71",
         "grouped_matmul": "src/repro/kernels/moe_gmm.py:41",
         "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
@@ -2740,13 +3319,14 @@ def main(argv=None) -> int:
         "paged_decode_attention": "paged_decode.cu",
         "paged_decode_attention_int8": "paged_decode.cu",
         "flash_attention": "flash_attention.cu",
+        "flash_attention_bwd": "flash_attention_bwd.cu",
         "decode_attention": "decode_attention.cu",
         "grouped_matmul": "grouped_matmul.cu",
         "ssd_scan": "ssd_scan.cu",
     }
-    # launches on the main path: the sum over the nine serving runs,
-    # each counted from zero
-    runs = (f32, i8, cluster, g3, moe, *ssm_runs, *zoo)
+    # launches on the main paths: the sum over the serving runs and the
+    # training runs, each counted from zero
+    runs = (f32, i8, cluster, g3, moe, *ssm_runs, *zoo, *train_runs)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{source[name]}",

@@ -15,7 +15,7 @@ from __future__ import annotations
 import struct
 from typing import Any, List
 
-__all__ = ["packb", "unpackb"]
+__all__ = ["header", "packb", "unpackb"]
 
 _U8, _U16, _U32, _U64 = (struct.Struct(f) for f in (">B", ">H", ">I", ">Q"))
 _I8, _I16, _I32, _I64 = (struct.Struct(f) for f in (">b", ">h", ">i", ">q"))
@@ -97,6 +97,23 @@ def _pack(out: List[bytes], obj: Any) -> None:
             _pack(out, v)
     else:
         raise TypeError(f"can not serialize {type(obj).__name__!r} object")
+
+
+def header(kind: str, n: int) -> bytes:
+    """The header of a map (``kind="map"``) of ``n`` pairs, an array
+    (``"array"``) of ``n`` items or a bin (``"bin"``) of ``n`` bytes:
+    :func:`packb` of one is this header followed by its packed items (or
+    its bytes), so a writer can emit a long one piece by piece."""
+    out: List[bytes] = []
+    if kind == "map":
+        _header(out, n, 0x80, 16, (None, 0xDE, 0xDF))
+    elif kind == "array":
+        _header(out, n, 0x90, 16, (None, 0xDC, 0xDD))
+    elif kind == "bin":
+        _header(out, n, 0, 0, (0xC4, 0xC5, 0xC6))
+    else:
+        raise ValueError(f"no header kind {kind!r}")
+    return b"".join(out)
 
 
 def packb(obj: Any) -> bytes:

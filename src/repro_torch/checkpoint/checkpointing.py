@@ -16,6 +16,11 @@ Restore reads leaves host-side and places them on the device the caller
 names (or where the ``like`` tree's tensors live).  Writes are atomic
 (tmp + rename) and optionally asynchronous (snapshot to host first, a
 background thread serializes), so a caller never blocks on disk.
+
+A zlib file is written and read as a stream, one leaf at a time: the
+same bytes as compressing the whole container at once, without a
+second copy of it in host memory (a full-width training state is tens
+of GB).  Its level is :data:`ZLIB_LEVEL`.
 """
 
 from __future__ import annotations
@@ -40,10 +45,10 @@ except ImportError:  # hermetic containers: fall back to stdlib zlib
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 
 
-def _compress(raw: bytes) -> bytes:
-    if zstandard is not None:
-        return zstandard.ZstdCompressor(level=3).compress(raw)
-    return zlib.compress(raw, 6)
+#: zlib's level where ``zstandard`` is absent (the JAX package's 6); read
+#: at each write, so a process may set it (0 stores a file without
+#: compressing it, in the same format)
+ZLIB_LEVEL = 6
 
 
 def _decompress(blob: bytes) -> bytes:
@@ -83,13 +88,6 @@ def _host_leaf(x: Any) -> Any:
     return np.asarray(x)
 
 
-def _pack_leaf(x: Any) -> dict:
-    if isinstance(x, _Bf16):
-        return {"dtype": "bfloat16", "shape": list(x.bits.shape),
-                "data": x.bits.tobytes()}
-    return {"dtype": str(x.dtype), "shape": list(x.shape), "data": x.tobytes()}
-
-
 def _unpack_leaf(d: dict) -> Any:
     """A leaf as the file holds it: a numpy array, or a :class:`_Bf16`."""
     if d["dtype"] == "bfloat16":
@@ -110,24 +108,57 @@ def _to_tensor(leaf: Any, device: Any) -> torch.Tensor:
 
 def _read(path: str) -> dict:
     with open(path, "rb") as f:
-        blob = f.read()
-    return _msgpack.unpackb(_decompress(blob))
+        if f.read(4) == _ZSTD_MAGIC:
+            f.seek(0)
+            return _msgpack.unpackb(_decompress(f.read()))
+        f.seek(0)
+        inflate = zlib.decompressobj()
+        raw = bytearray()
+        while True:
+            chunk = f.read(1 << 26)
+            if not chunk:
+                break
+            raw += inflate.decompress(chunk)
+        raw += inflate.flush()
+    return _msgpack.unpackb(raw)
+
+
+def _container(leaves: list, step: int):
+    """The file's MessagePack container in pieces whose concatenation is
+    ``packb({"meta": {step, n_leaves}, "leaves": [{dtype, shape, data},
+    ...]})`` (a bfloat16 leaf's data its ``uint16`` bits): the head, then
+    per leaf its map's header bytes and its data as a buffer (not
+    copied)."""
+    yield (_msgpack.header("map", 2) + _msgpack.packb("meta")
+           + _msgpack.packb({"step": step, "n_leaves": len(leaves)})
+           + _msgpack.packb("leaves") + _msgpack.header("array", len(leaves)))
+    for leaf in leaves:
+        arr = leaf.bits if isinstance(leaf, _Bf16) else leaf
+        dtype = "bfloat16" if isinstance(leaf, _Bf16) else str(leaf.dtype)
+        data = memoryview(np.ascontiguousarray(arr)).cast("B")
+        yield (_msgpack.header("map", 3)
+               + _msgpack.packb("dtype") + _msgpack.packb(dtype)
+               + _msgpack.packb("shape") + _msgpack.packb(list(arr.shape))
+               + _msgpack.packb("data") + _msgpack.header("bin", len(data)))
+        yield data
 
 
 def save(path: str, tree: PyTree, *, step: int = 0) -> None:
     """Atomic synchronous save."""
     leaves = [_host_leaf(x) for x in tree_flatten(tree)[0]]
-    payload = {
-        "meta": {"step": step, "n_leaves": len(leaves)},
-        "leaves": [_pack_leaf(l) for l in leaves],
-    }
-    blob = _compress(_msgpack.packb(payload))
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            f.write(blob)
+            if zstandard is not None:
+                f.write(zstandard.ZstdCompressor(level=3).compress(
+                    b"".join(_container(leaves, step))))
+            else:
+                deflate = zlib.compressobj(ZLIB_LEVEL)
+                for piece in _container(leaves, step):
+                    f.write(deflate.compress(piece))
+                f.write(deflate.flush())
         os.replace(tmp, path)  # atomic on POSIX
     finally:
         if os.path.exists(tmp):

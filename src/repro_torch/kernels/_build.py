@@ -43,8 +43,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                      *[_I] * 8, _F, _I, _P],
     },
     "flash_attention": {
-        "launch_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   *[_L] * 12, _I, _I, _I, _F, _I, _P],
+        "launch_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, *[_L] * 12, _I, _I, _I, _F, _I, _P],
+    },
+    "flash_attention_bwd": {
+        "launch_flash_attention_bwd": [*[_P] * 10, *[_I] * 6, *[_L] * 24,
+                                       _I, _I, _I, _F, _I, _P],
     },
     "decode_attention": {
         "launch_decode_attention": [_P, _P, _P, _P, _P, _P,

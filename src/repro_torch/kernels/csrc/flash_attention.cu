@@ -15,6 +15,11 @@
 // Sq and Sk are any lengths (the tails are masked); the TPU kernel
 // rejects lengths that are not multiples of its blocks.
 //
+// Training: with a non-null ``lse`` the kernel also writes each row's
+// natural log-sum-exp of its scaled scores, f32 [B, H, Sq], from which
+// the backward (flash_attention_bwd.cu) recomputes the probabilities; the
+// serving path passes null and writes nothing more.
+//
 // Semantics: row i sits at absolute position qp = q_offset + i; key j is
 // kept when j < Sk, (!causal || j <= qp) and (window == 0 || qp - j <
 // window).  Scores are (q . k) / sqrt(hd), the softmax is online in f32
@@ -162,7 +167,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <typename T, int NC>
 __global__ void __launch_bounds__(32 * kWarps)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int H, int KV,
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int H, int KV,
              int Sq, int Sk, int hd, Strides qs, Strides ks, Strides vs,
              Strides os, int causal, int window, int q_offset, float scale) {
   extern __shared__ float4 smem4[];
@@ -285,6 +291,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kRows; ++r) {
     const int row = warp * kRows + r;
     if (row >= nq) continue;
+    if (lse != nullptr && lane == 0) {
+      lse[(static_cast<long long>(b) * H + h) * Sq + q0 + row] =
+          m[r] + logf(l[r]);
+    }
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -299,10 +309,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int NC>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KV, int Sq, int Sk, int hd, Strides qs, Strides ks,
-           Strides vs, Strides os, int causal, int window, int q_offset,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int H, int KV, int Sq, int Sk, int hd,
+           Strides qs, Strides ks, Strides vs, Strides os, int causal,
+           int window, int q_offset, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxSmem);
@@ -312,21 +322,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_kernel<T, NC><<<grid, 32 * kWarps, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, KV, Sq, Sk, hd, qs,
-      ks, vs, os, causal, window, q_offset, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, H, KV, Sq, Sk, hd,
+      qs, ks, vs, os, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int B, int H, int KV, int Sq, int Sk, int hd, Strides qs,
-               Strides ks, Strides vs, Strides os, int causal, int window,
-               int q_offset, float scale, cudaStream_t stream) {
+               float* lse, int B, int H, int KV, int Sq, int Sk, int hd,
+               Strides qs, Strides ks, Strides vs, Strides os, int causal,
+               int window, int q_offset, float scale, cudaStream_t stream) {
   if (hd <= 128) {
-    return launch<float, 1>(q, k, v, out, B, H, KV, Sq, Sk, hd, qs, ks, vs,
-                            os, causal, window, q_offset, scale, stream);
+    return launch<float, 1>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, qs, ks,
+                            vs, os, causal, window, q_offset, scale, stream);
   }
-  return launch<float, 2>(q, k, v, out, B, H, KV, Sq, Sk, hd, qs, ks, vs, os,
-                          causal, window, q_offset, scale, stream);
+  return launch<float, 2>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, qs, ks, vs,
+                          os, causal, window, q_offset, scale, stream);
 }
 
 // ------------------------------------------------------------ bf16 MMA
@@ -366,10 +376,10 @@ __device__ __forceinline__ void group_sync(int group) {
 template <int HDP, int BK, int GR>
 __global__ void __launch_bounds__(kGroupThreads * GR)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int H,
-                 int KV, int Sq, int Sk, int hd, Strides qs, Strides ks,
-                 Strides vs, Strides os, int causal, int window,
-                 int q_offset, float scale) {
+                 const bf16* __restrict__ v, bf16* __restrict__ out,
+                 float* __restrict__ lse, int H, int KV, int Sq, int Sk,
+                 int hd, Strides qs, Strides ks, Strides vs, Strides os,
+                 int causal, int window, int q_offset, float scale) {
   constexpr int P = HDP + kPad;  // shared-memory row pitch (elements)
   constexpr int KT = HDP / 16;   // k-steps of Q.K^T
   constexpr int NT = BK / 8;     // n-tiles of S (8 keys each)
@@ -649,6 +659,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       a0[i] = exp2f(m[i] - mx);
       a1[i] = exp2f(m1 - mx);
       l[i] = l[i] * a0[i] + xch[(DT * 4 + 2 + i) * 32] * a1[i];
+      m[i] = mx;
     }
 #pragma unroll
     for (int d = 0; d < DT; ++d) {
@@ -667,6 +678,12 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    // the row's natural log-sum-exp of the scaled scores, for the backward
+    const int row = wq * 16 + g + 8 * i;
+    if (lse != nullptr && t4 == 0 && row < nq) {
+      lse[(static_cast<long long>(b) * H + h) * Sq + q0 + row] =
+          (m[i] + log2f(l[i])) * 0.6931471805599453f;
+    }
   }
   bf16* so = sQ + wq * 16 * P;
   __syncwarp();
@@ -693,10 +710,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int HDP, int GR>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int KV, int Sq, int Sk, int hd, Strides qs, Strides ks,
-               Strides vs, Strides os, int causal, int window, int q_offset,
-               float scale, int blocks, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int H, int KV, int Sq, int Sk, int hd,
+               Strides qs, Strides ks, Strides vs, Strides os, int causal,
+               int window, int q_offset, float scale, int blocks,
+               cudaStream_t stream) {
   constexpr int BK = key_tile(HDP);
   constexpr int bytes = mma_smem(HDP, GR);
   // the attribute is the function's on each device: set it once per device
@@ -714,8 +732,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid(H, blocks, B);
   flash_mma_kernel<HDP, BK, GR><<<grid, kGroupThreads * GR, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), H, KV, Sq, Sk,
-      hd, qs, ks, vs, os, causal, window, q_offset, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, H, KV, Sq,
+      Sk, hd, qs, ks, vs, os, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -741,32 +759,32 @@ int sm_count(int* sms) {
 // sweeps would set the time
 template <int HDP>
 int launch_groups(const void* q, const void* k, const void* v, void* out,
-                  int B, int H, int KV, int Sq, int Sk, int hd, Strides qs,
-                  Strides ks, Strides vs, Strides os, int causal, int window,
-                  int q_offset, float scale, cudaStream_t stream) {
+                  float* lse, int B, int H, int KV, int Sq, int Sk, int hd,
+                  Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                  int window, int q_offset, float scale, cudaStream_t stream) {
   const int blocks = (Sq + kMmaRows - 1) / kMmaRows;
   if (blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   int sms = 0;
   const int err = sm_count(&sms);
   if (err != 0) return err;
   if (static_cast<long long>(H) * blocks * B >= 2LL * sms) {
-    return launch_mma<HDP, 1>(q, k, v, out, B, H, KV, Sq, Sk, hd, qs, ks, vs,
-                              os, causal, window, q_offset, scale, blocks,
-                              stream);
+    return launch_mma<HDP, 1>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, qs,
+                              ks, vs, os, causal, window, q_offset, scale,
+                              blocks, stream);
   }
-  return launch_mma<HDP, 2>(q, k, v, out, B, H, KV, Sq, Sk, hd, qs, ks, vs,
-                            os, causal, window, q_offset, scale, blocks,
+  return launch_mma<HDP, 2>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, qs, ks,
+                            vs, os, causal, window, q_offset, scale, blocks,
                             stream);
 }
 
 // the template of the smallest padded width that holds hd
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int H, int KV, int Sq, int Sk, int hd, Strides qs,
-                Strides ks, Strides vs, Strides os, int causal, int window,
-                int q_offset, float scale, cudaStream_t stream) {
-#define REPRO_FLASH_MMA(HDP)                                             \
-  return launch_groups<HDP>(q, k, v, out, B, H, KV, Sq, Sk, hd, qs, ks, vs, \
-                            os, causal, window, q_offset, scale, stream)
+                float* lse, int B, int H, int KV, int Sq, int Sk, int hd,
+                Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                int window, int q_offset, float scale, cudaStream_t stream) {
+#define REPRO_FLASH_MMA(HDP)                                               \
+  return launch_groups<HDP>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, qs, ks, \
+                            vs, os, causal, window, q_offset, scale, stream)
   if (hd <= 16) REPRO_FLASH_MMA(16);
   if (hd <= 32) REPRO_FLASH_MMA(32);
   if (hd <= 64) REPRO_FLASH_MMA(64);
@@ -779,10 +797,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 // dtype codes: 0 = float32, 1 = bfloat16.  Strides are in elements, for
 // the (batch, head, sequence) dimensions; the head dimension is
-// contiguous.  window 0 disables the sliding window.  Returns
+// contiguous.  window 0 disables the sliding window.  lse, when not null,
+// receives each row's natural log-sum-exp of its scaled scores, f32
+// [B, H, Sq] contiguous (what the backward, flash_attention_bwd.cu,
+// recomputes P from); the serving path passes null.  Returns
 // cudaGetLastError() after the launch (or the attribute call's error).
 extern "C" int launch_flash_attention(
-    const void* q, const void* k, const void* v, void* out, int B, int H,
+    const void* q, const void* k, const void* v, void* out, void* lse_out,
+    int B, int H,
     int KV, int Sq, int Sk, int hd, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
@@ -795,12 +817,13 @@ extern "C" int launch_flash_attention(
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss};
   const Strides vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (dtype == 0) {
-    return launch_f32(q, k, v, out, B, H, KV, Sq, Sk, hd, qs, ks, vs, os,
+    return launch_f32(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, qs, ks, vs, os,
                       causal, window, q_offset, scale, s);
   }
   if (dtype == 1) {
-    return launch_bf16(q, k, v, out, B, H, KV, Sq, Sk, hd, qs, ks, vs, os,
+    return launch_bf16(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, qs, ks, vs, os,
                        causal, window, q_offset, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

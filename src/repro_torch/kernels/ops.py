@@ -2,7 +2,20 @@
 for CUDA tensors.  There is no fallback: a CUDA tensor the kernel cannot
 take raises.  The one way to run a plain version on CUDA tensors is the
 scoped :func:`plain_on_card`, for comparisons; the engine and the models
-never enter it."""
+never enter it.
+
+Training: the kernels write through ``ctypes`` into tensors autograd
+cannot see into, so a call whose inputs need a gradient goes through a
+``torch.autograd.Function`` whose backward is a kernel too: K3's forward
+saving its log-sum-exp and K3's hand-written backward
+(``flash_attention_bwd.cu``); K5 forward and, for the gradients, K5
+twice more on transposed copies.  A kernel without a backward (K1, K2,
+K4: decode only; K6, whose backward kernel is ROADMAP Queue 1 item 11b)
+raises ``NotImplementedError`` on a CUDA tensor that needs a gradient.
+A call none of whose inputs needs a gradient, or made under
+``torch.no_grad()``, launches exactly as the serving path always has.
+On the CPU, and inside :func:`plain_on_card`, autograd differentiates
+the plain versions."""
 
 from __future__ import annotations
 
@@ -23,10 +36,15 @@ WRAPPERS = (
     paged_decode.paged_decode_attention,
     paged_decode.paged_decode_attention_int8,
     _flash.flash_attention,
+    _flash.flash_attention_bwd,
     _decode.decode_attention,
     _gmm.grouped_matmul,
     _ssd.ssd_scan,
 )
+
+#: the ROADMAP item that brings K6's backward kernel
+SSD_BACKWARD_ITEM = ("ROADMAP Queue 1 item 11b, the K6 backward kernel "
+                     "(Mamba-2 and zamba2 training on the card)")
 
 #: True inside :func:`plain_on_card` (per thread and task, not global)
 _PLAIN = contextvars.ContextVar("plain_on_card", default=False)
@@ -49,6 +67,14 @@ def plain_on_card() -> Iterator[None]:
         _PLAIN.reset(token)
 
 
+def plain_active() -> bool:
+    """True inside :func:`plain_on_card` on this thread.  Autograd runs a
+    checkpointed unit's recompute in a CUDA backward on its own device
+    thread, which does not see this one's context: the recompute reads
+    this at forward time and re-enters :func:`plain_on_card` itself."""
+    return _PLAIN.get()
+
+
 def _on_cpu(q: torch.Tensor) -> bool:
     """True where the plain version runs: CPU tensors, or CUDA tensors
     inside :func:`plain_on_card`."""
@@ -57,6 +83,67 @@ def _on_cpu(q: torch.Tensor) -> bool:
     if q.device.type == "cuda":
         return _PLAIN.get()
     raise ValueError(f"no kernel path for device {q.device}")
+
+
+def _needs_grad(*tensors) -> bool:
+    """True where autograd records this call: grad mode on and an input
+    that requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors
+    )
+
+
+def _no_backward(name: str, why: str, *tensors) -> None:
+    """Raise on a CUDA call that needs a gradient its kernel has not."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward ({why}); call it "
+            "under torch.no_grad(), or on the CPU"
+        )
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3 with K3's backward: the forward saves (q, k, v, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, lse = _flash.flash_attention(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            return_lse=True,
+        )
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = _flash.flash_attention_bwd(
+            q, k, v, out, dout.to(q.dtype), lse, causal=causal,
+            window=window, q_offset=q_offset,
+        )
+        return dq, dk, dv, None, None, None
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """K5, and K5 for both gradients: dX[e] = dY[e] W[e]^T and
+    dW[e] = X[e]^T dY[e] (the capacity axis the reduction), each on
+    contiguous transposed copies, since K5 takes ``w`` contiguous and
+    ``x`` with contiguous rows."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _gmm.grouped_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = _gmm.grouped_matmul(dy, w.transpose(1, 2).contiguous())
+        dw = _gmm.grouped_matmul(x.transpose(1, 2).contiguous(), dy)
+        return dx, dw
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens, *,
@@ -71,6 +158,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens, *,
         return ref.paged_decode_attention_ref(
             q, k_pool, v_pool, page_table, seq_lens
         )
+    _no_backward("paged_decode_attention", "decode only", q, k_pool, v_pool)
     return paged_decode.paged_decode_attention(
         q, k_pool, v_pool, page_table, seq_lens, q_per_kv=q_per_kv
     )
@@ -86,6 +174,7 @@ def paged_decode_attention_int8(
         return ref.paged_decode_attention_int8_ref(
             q, k_pool, v_pool, k_scales, v_scales, page_table, seq_lens
         )
+    _no_backward("paged_decode_attention_int8", "decode only", q)
     return paged_decode.paged_decode_attention_int8(
         q, k_pool, v_pool, k_scales, v_scales, page_table, seq_lens,
         q_per_kv=q_per_kv,
@@ -97,12 +186,21 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     """[B, H, Sq, hd] attention over grouped-query [B, KV, Sk, hd] K and
     [B, KV, Sk, vd] V, vd <= hd (K3); the output is [B, H, Sq, vd].
     ``chunk`` is the plain version's query block; the kernel tiles on
-    its own."""
+    its own.  Where an input needs a gradient, the kernel runs through
+    :class:`_FlashAttention` (a narrow V zero-padded to q's width and the
+    output sliced back in autograd, so the padding's gradient is
+    dropped)."""
     if _on_cpu(q):
         return ref.flash_attention_ref(
             q, k, v, causal=causal, window=window, q_offset=q_offset,
             chunk=chunk,
         )
+    if _needs_grad(q, k, v):
+        vd, hd = v.shape[-1], q.shape[-1]
+        if vd < hd:
+            v = torch.nn.functional.pad(v, (0, hd - vd))
+        out = _FlashAttention.apply(q, k, v, causal, window, q_offset)
+        return out if vd == hd else out[..., :vd]
     return _flash.flash_attention(
         q, k, v, causal=causal, window=window, q_offset=q_offset
     )
@@ -113,6 +211,7 @@ def decode_attention(q, k, v, cur_pos, *, window=0):
     [B, KV, S, hd] cache up to ``cur_pos[b]`` (K4)."""
     if _on_cpu(q):
         return ref.decode_attention_ref(q, k, v, cur_pos, window=window)
+    _no_backward("decode_attention", "decode only", q, k, v)
     return _decode.decode_attention(q, k, v, cur_pos, window=window)
 
 
@@ -121,6 +220,8 @@ def grouped_matmul(x, w):
     x's dtype (K5): the expert GEMMs of an MoE layer."""
     if _on_cpu(x):
         return ref.grouped_matmul_ref(x, w)
+    if _needs_grad(x, w):
+        return _GroupedMatmul.apply(x, w)
     return _gmm.grouped_matmul(x, w)
 
 
@@ -129,4 +230,5 @@ def ssd_scan(x, dt, A, Bm, C, chunk):
     and the gate (K6): every Mamba-2 prefill layer."""
     if _on_cpu(x):
         return ref.ssd_scan_ref(x, dt, A, Bm, C, chunk)
+    _no_backward("ssd_scan", SSD_BACKWARD_ITEM, x, dt, A, Bm, C)
     return _ssd.ssd_scan(x, dt, A, Bm, C, chunk)

@@ -1,4 +1,4 @@
-"""Model assembly: init, prefill, decode.
+"""Model assembly: init, the train-mode forward, prefill, decode.
 
 The parameter and cache trees keep the JAX package's layout so the two
 can be compared like with like: the repeated unit's leaves are stacked
@@ -23,13 +23,23 @@ and places them before the tokens, and an encoder-decoder (whisper) runs
 its encoder over ``frame_embeds`` and cross-attends every decoder block
 to K/V built once from the encoder output, carried in the caches as
 ``cross_kv``.
+
+Train mode (:func:`forward`, :func:`forward_hidden`,
+:func:`backbone_forward`) is the JAX package's: every block through
+:func:`_apply_block_full`, whose residual stream leaves through
+``bf16_grad``; each repeat of the unit recomputed in the backward under
+``torch.utils.checkpoint`` (``remat=True``, JAX's ``jax.checkpoint``) or
+keeping its projections (``remat="dots"``); the f32 unembedding.
+:func:`prefill` runs the same blocks, so the block code exists once.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kernel_ops
@@ -38,6 +48,7 @@ from . import blocks
 from .layers import (
     apply_mlp,
     apply_rope,
+    bf16_grad,
     chunked_attention,
     dense_init,
     embed_init,
@@ -323,12 +334,7 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
 def _unembed(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     """Final norm and the f32 logits [B, S, V]."""
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    w = (
-        params["embed"]["tokens"].t()
-        if cfg.tie_embeddings
-        else params["lm_head"]
-    )
-    return torch.matmul(x.float(), w.float())
+    return torch.matmul(x.float(), unembed_weight(cfg, params).float())
 
 
 def _ffn(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
@@ -360,19 +366,24 @@ def _extra(cfg: ArchConfig, extra: Optional[Dict[str, torch.Tensor]],
     return extra[key]
 
 
-def encoder_forward(cfg: ArchConfig, params,
-                    frames: torch.Tensor) -> torch.Tensor:
+def encoder_forward(cfg: ArchConfig, params, frames: torch.Tensor, *,
+                    remat: Union[bool, str] = True) -> torch.Tensor:
     """whisper's encoder over (stub) frame embeddings [B, T, d]: the
     audio projection, then non-causal attention (K3 on the card) and the
-    MLP per layer, then the final norm."""
+    MLP per layer, then the final norm.  With ``remat`` and a gradient
+    to record, each layer is recomputed in the backward, as the JAX
+    package checkpoints its scanned layer."""
     enc = params["encoder"]
     x = _project(frames, params["audio_proj"]).to(params["audio_proj"].dtype)
-    for r in range(cfg.enc_layers):
-        p = _index(enc["layers"], r)
-        x = x + blocks.attention_forward(
-            p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), causal=False
+
+    def layer(h, p):
+        h = h + blocks.attention_forward(
+            p["attn"], cfg, rms_norm(h, p["ln1"], cfg.norm_eps), causal=False
         )
-        x = x + apply_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+        return h + apply_mlp(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+
+    for r in range(cfg.enc_layers):
+        x = _remat_call(remat, layer, x, _index(enc["layers"], r))
     return rms_norm(x, enc["final_ln"], cfg.norm_eps)
 
 
@@ -405,6 +416,219 @@ def _cross_attend(pc: dict, cfg: ArchConfig, x: torch.Tensor,
     return x + torch.matmul(out, pc["attn"]["wo"])
 
 
+# --------------------------------------------------- full-sequence blocks
+def _apply_block_full(
+    p: dict,
+    cfg: ArchConfig,
+    btype: str,
+    x: torch.Tensor,
+    *,
+    shared_body: Optional[dict],
+    q_offset: int = 0,
+    causal: bool = True,
+    want_cache: bool,
+):
+    """One block over a whole sequence (train / prefill), as the JAX
+    package's ``_apply_block_full``: returns (x, the block's cache or
+    None).  The residual stream leaves every block through
+    :func:`bf16_grad`, at the JAX package's boundaries."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    cache = None
+    if btype == "mamba":
+        if want_cache:
+            y, cache = blocks.mamba_forward(p["mamba"], cfg, h,
+                                            return_cache=True)
+        else:
+            y = blocks.mamba_forward(p["mamba"], cfg, h)
+        x = x + y
+    elif btype == "shared_attn":
+        x, cache = _shared_attn_full(p, cfg, shared_body, x, h,
+                                     q_offset=q_offset, causal=causal)
+    else:
+        if cfg.mla is not None:
+            out = blocks.mla_forward(p["attn"], cfg, h, q_offset=q_offset,
+                                     return_cache=want_cache)
+        else:
+            out = blocks.attention_forward(
+                p["attn"], cfg, h, window=_window(cfg, btype),
+                causal=causal, q_offset=q_offset, return_cache=want_cache,
+            )
+        a, cache = out if want_cache else (out, None)
+        x = x + a
+        x = x + _ffn(p, cfg, x)
+    return bf16_grad(x), (cache if want_cache else None)
+
+
+def _dots_saved(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of the plain matrix products
+    (the projections, ``aten.mm``: a product without batch dimensions, as
+    JAX's ``dots_with_no_batch_dims_saveable`` keeps) and recompute the
+    rest, the attention and expert kernels included."""
+    if op is torch.ops.aten.mm.default:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+class _Recompute:
+    """A checkpoint's recompute context: ``inner`` (selective
+    checkpointing's, or none) and, where the forward ran inside
+    ``ops.plain_on_card``, that again — on the card the recompute runs on
+    autograd's device thread, which does not see the forward's context.
+    Entered once per backward, any number of times."""
+
+    def __init__(self, inner, plain: bool) -> None:
+        self.inner, self.plain = inner, plain
+        self._stack = None
+
+    def __enter__(self):
+        self._stack = contextlib.ExitStack()
+        self._stack.enter_context(self.inner)
+        if self.plain:
+            self._stack.enter_context(kernel_ops.plain_on_card())
+
+    def __exit__(self, *exc):
+        return self._stack.__exit__(*exc)
+
+
+def _remat_call(remat: Union[bool, str], fn, *args):
+    """``fn(*args)``, recomputed in the backward where there is one to
+    record and ``remat`` asks: ``True`` keeps only the inputs (JAX's
+    ``jax.checkpoint``), ``"dots"`` keeps the projections' outputs too.
+    The recompute takes the forward's kernel dispatch (:class:`_Recompute`).
+    Under no grad mode (serving) it is a plain call."""
+    if not remat or not torch.is_grad_enabled():
+        return fn(*args)
+    plain = kernel_ops.plain_active()
+
+    def contexts():
+        if remat == "dots":
+            fwd, rec = _ckpt.create_selective_checkpoint_contexts(_dots_saved)
+        else:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        return fwd, _Recompute(rec, plain)
+
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                            context_fn=contexts)
+
+
+def _block_types(cfg: ArchConfig) -> List[str]:
+    """Every block's type in execution order (that of :func:`_layers`)."""
+    return (list(cfg.block_pattern) * cfg.resolved_pattern_repeats
+            + list(cfg.suffix_blocks))
+
+
+def backbone_forward(
+    cfg: ArchConfig,
+    params,
+    x: torch.Tensor,
+    *,
+    q_offset: int = 0,
+    causal: bool = True,
+    want_cache: bool = False,
+    remat: Union[bool, str] = True,
+    cross_ctx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+):
+    """The block program over embeddings ``x`` [B, S, d]; returns (x,
+    caches): with ``want_cache`` one cache per block in execution order
+    (what :func:`prefill` pads and stacks), else None.
+
+    Where JAX scans the stacked unit under ``jax.checkpoint``, this loops
+    over its repeats and, with ``remat`` and a gradient to record, runs
+    each repeat of the unit (its blocks and whisper's cross-attention)
+    under ``torch.utils.checkpoint``: the backward recomputes one unit at
+    a time, so the forward's attention kernels run twice per step.  The
+    suffix blocks run once, unrolled and not recomputed, as in JAX."""
+    shared_body = params.get("shared_body")
+    pattern = cfg.block_pattern
+    cross = params.get("cross")
+    caches: List[Any] = []
+
+    def unit_fn(h, unit_p, unit_cross):
+        outs = []
+        for i, bt in enumerate(pattern):
+            h, c = _apply_block_full(
+                unit_p[f"b{i}"], cfg, bt, h, shared_body=shared_body,
+                q_offset=q_offset, causal=causal, want_cache=want_cache,
+            )
+            if cross_ctx is not None:
+                h = _cross_attend(unit_cross[f"b{i}"], cfg, h, cross_ctx)
+            outs.append(c)
+        return (h, outs) if want_cache else h
+
+    for r in range(cfg.resolved_pattern_repeats):
+        unit_p = _index(params["layers"], r)
+        unit_cross = None
+        if cross_ctx is not None:
+            unit_cross = _index(cross, r)
+        if want_cache:
+            x, outs = unit_fn(x, unit_p, unit_cross)
+            caches.extend(outs)
+        else:
+            x = _remat_call(remat, unit_fn, x, unit_p, unit_cross)
+    for p_blk, bt in zip(params["suffix"], cfg.suffix_blocks):
+        x, c = _apply_block_full(
+            p_blk, cfg, bt, x, shared_body=shared_body, q_offset=q_offset,
+            causal=causal, want_cache=want_cache,
+        )
+        caches.append(c)
+    return x, (caches if want_cache else None)
+
+
+def _front(cfg: ArchConfig, params, tokens: torch.Tensor,
+           extra: Optional[Dict[str, torch.Tensor]],
+           remat: Union[bool, str]):
+    """The embedded tokens, with a vision stub's projected patches placed
+    before them, and an encoder-decoder's cross-attention K/V (else
+    None)."""
+    x = _embed(params, tokens)
+    cross_kv = None
+    if cfg.frontend == "vision_stub":
+        vis = _project(_extra(cfg, extra, "patch_embeds"),
+                       params["vision_proj"]).to(x.dtype)
+        x = torch.cat([vis, x], dim=1)
+    if cfg.enc_layers:
+        enc_out = encoder_forward(cfg, params,
+                                  _extra(cfg, extra, "frame_embeds"),
+                                  remat=remat)
+        cross_kv = _encode_cross_kv(cfg, params, enc_out)
+    return x, cross_kv
+
+
+def forward_hidden(
+    cfg: ArchConfig,
+    params,
+    tokens: torch.Tensor,
+    *,
+    extra: Optional[Dict[str, torch.Tensor]] = None,
+    remat: Union[bool, str] = True,
+) -> torch.Tensor:
+    """Train-mode forward up to the final norm (no unembedding):
+    [B, S(+vision), d]."""
+    _check_stack(cfg)
+    x, cross_kv = _front(cfg, params, tokens, extra, remat)
+    x, _ = backbone_forward(cfg, params, x, remat=remat, cross_ctx=cross_kv)
+    return rms_norm(x, params["final_ln"], cfg.norm_eps)
+
+
+def unembed_weight(cfg: ArchConfig, params) -> torch.Tensor:
+    """[d, V]: the tied embedding's transpose, or ``lm_head``."""
+    return (params["embed"]["tokens"].t() if cfg.tie_embeddings
+            else params["lm_head"])
+
+
+def forward(
+    cfg: ArchConfig,
+    params,
+    tokens: torch.Tensor,
+    *,
+    extra: Optional[Dict[str, torch.Tensor]] = None,
+    remat: Union[bool, str] = True,
+) -> torch.Tensor:
+    """Train-mode forward → f32 logits [B, S(+vision), vocab]."""
+    x = forward_hidden(cfg, params, tokens, extra=extra, remat=remat)
+    return torch.matmul(x.float(), unembed_weight(cfg, params).float())
+
+
 def prefill(
     cfg: ArchConfig,
     params,
@@ -420,45 +644,20 @@ def prefill(
     [B, N, d], projected and placed before the tokens, so the caches
     hold N + S positions; an encoder-decoder (whisper) takes
     ``extra["frame_embeds"]`` [B, T, d], and its caches carry the
-    cross-attention K/V as ``cross_kv`` for :func:`decode_step`."""
+    cross-attention K/V as ``cross_kv`` for :func:`decode_step`.  The
+    blocks are :func:`backbone_forward`'s, as in the JAX package."""
     _check_stack(cfg)
-    x = _embed(params, tokens)
-    cross_kv = None
-    if cfg.frontend == "vision_stub":
-        vis = _project(_extra(cfg, extra, "patch_embeds"),
-                       params["vision_proj"]).to(x.dtype)
-        x = torch.cat([vis, x], dim=1)
-    if cfg.enc_layers:
-        enc_out = encoder_forward(cfg, params,
-                                  _extra(cfg, extra, "frame_embeds"))
-        cross_kv = _encode_cross_kv(cfg, params, enc_out)
+    x, cross_kv = _front(cfg, params, tokens, extra, remat=False)
     s = x.shape[1]
     max_seq = max_seq or s
+    x, layer_caches = backbone_forward(cfg, params, x, want_cache=True,
+                                       cross_ctx=cross_kv)
     kvs = []
-    for btype, p, _, pc in _layers(cfg, params):
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        window = _window(cfg, btype)
-        if btype == "mamba":
-            y, cache = blocks.mamba_forward(p["mamba"], cfg, h,
-                                            return_cache=True)
-            x = x + y
-        elif btype == "shared_attn":
-            x, cache = _shared_attn_full(p, cfg, params["shared_body"], x, h)
-        else:
-            if cfg.mla is not None:
-                a, cache = blocks.mla_forward(p["attn"], cfg, h,
-                                              return_cache=True)
-            else:
-                a, cache = blocks.attention_forward(
-                    p["attn"], cfg, h, window=window, return_cache=True
-                )
-            x = x + a
-            x = x + _ffn(p, cfg, x)
-        if pc is not None:
-            x = _cross_attend(pc, cfg, x, cross_kv)
+    for btype, cache in zip(_block_types(cfg), layer_caches):
         if btype != "mamba":
             # conv tails and state have no seq axis: no padding.  The seq
             # axis is -2 of K/V [B, KV, S, hd] and of MLA's [B, S, *]
+            window = _window(cfg, btype)
             ring = window is not None and cfg.mla is None
             seq = _cache_len(cfg, btype, max_seq) if ring else max_seq
             if ring and s > seq:
@@ -475,14 +674,16 @@ def prefill(
 
 
 def _shared_attn_full(p: dict, cfg: ArchConfig, body: dict,
-                      x: torch.Tensor, h: torch.Tensor):
+                      x: torch.Tensor, h: torch.Tensor, *,
+                      q_offset: int = 0, causal: bool = True):
     """zamba2's shared attention position over a sequence: the in
     adapter, the shared body (attention through K3 on the card, then its
     MLP), the out adapter added to the residual ``x``; returns (x, the
     body's K/V)."""
     inner = torch.matmul(h, p["in_adapter"])
     g = rms_norm(inner, body["ln1"], cfg.norm_eps)
-    a, kv = blocks.attention_forward(body["attn"], cfg, g, return_cache=True)
+    a, kv = blocks.attention_forward(body["attn"], cfg, g, q_offset=q_offset,
+                                     causal=causal, return_cache=True)
     inner = inner + a
     inner = inner + apply_mlp(body["mlp"],
                               rms_norm(inner, body["ln2"], cfg.norm_eps))

@@ -1,7 +1,9 @@
 """Nested dicts, lists and tuples of tensors, in the JAX package's leaf order.
 
 ``jax.tree_util`` visits a dict's keys sorted (``b10`` before ``b2``),
-lists and tuples in order, and gives ``None`` no leaf.  The engine's
+lists and tuples in order, a NamedTuple's fields in order (the
+optimizer state ``AdamWState(step, m, v)``), and gives ``None`` no
+leaf.  The engine's
 page payloads and the checkpoint files both depend on that order, so
 every flatten in the port goes through these helpers
 (``torch.utils._pytree`` keeps dicts in insertion order).
@@ -15,7 +17,7 @@ __all__ = ["tree_flatten", "tree_leaves", "tree_map", "tree_unflatten"]
 
 #: the structure :func:`tree_flatten` returns: ``"*"`` for a leaf,
 #: ``None`` for ``None``, ``(dict, keys, children)`` and
-#: ``(list | tuple, children)`` for containers
+#: ``(list | tuple | a NamedTuple class, children)`` for containers
 TreeDef = Any
 
 
@@ -53,6 +55,14 @@ def tree_unflatten(treedef: TreeDef, leaves: List[Any]) -> Any:
     return _build(treedef, iter(leaves))
 
 
+def _rebuild(kind: type, children: List[Any]) -> Any:
+    """A list or tuple of ``children``; a NamedTuple takes them as its
+    fields (its constructor takes no iterable)."""
+    if issubclass(kind, tuple) and hasattr(kind, "_fields"):
+        return kind(*children)
+    return kind(children)
+
+
 def _build(d: TreeDef, it) -> Any:
     """The tree ``d`` describes, its leaves drawn from ``it`` (a
     module-level function for the reason :func:`_walk` gives)."""
@@ -62,7 +72,7 @@ def _build(d: TreeDef, it) -> Any:
         return next(it)
     if d[0] is dict:
         return {k: _build(c, it) for k, c in zip(d[1], d[2])}
-    return d[0](_build(c, it) for c in d[1])
+    return _rebuild(d[0], [_build(c, it) for c in d[1]])
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -73,5 +83,5 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t) for t in tree)
+        return _rebuild(type(tree), [tree_map(fn, t) for t in tree])
     return fn(tree)

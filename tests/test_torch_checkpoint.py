@@ -308,3 +308,99 @@ def test_tree_helpers_leave_no_reference_cycle():
         assert alive() is None
     finally:
         gc.enable()
+
+
+# ------------------------------------------------------------ training state
+def test_tree_round_trips_a_namedtuple():
+    """``tree`` treats a NamedTuple as ``jax.tree_util`` does: its fields
+    in order as children, rebuilt with ``type(x)(*children)``."""
+    import jax
+
+    from repro.optim import adamw as jadamw
+    from repro_torch.optim import adamw as tadamw
+    from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+    m = {"b": np.arange(3.0), "a": [np.ones(2)]}
+    v = {"b": np.arange(3.0) * 2, "a": [np.ones(2) * 3]}
+    state = tadamw.AdamWState(np.int32(4), m, v)
+    leaves, treedef = tree_flatten(state)
+    want = jax.tree_util.tree_leaves(jadamw.AdamWState(np.int32(4), m, v))
+    assert len(leaves) == len(want) == 5
+    for a, b in zip(leaves, want):
+        np.testing.assert_array_equal(a, b)
+    back = tree_unflatten(treedef, leaves)
+    assert isinstance(back, tadamw.AdamWState) and back.step == 4
+    doubled = tree_map(lambda x: x * 2, state)
+    assert isinstance(doubled, tadamw.AdamWState)
+    np.testing.assert_array_equal(doubled.v["a"][0], [6.0, 6.0])
+
+
+def _train_state(seed):
+    """(params with bf16 and f32 leaves, AdamWState at step 3) as numpy."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(seed)
+    params = {"w": rng.standard_normal((4, 3)).astype(ml_dtypes.bfloat16),
+              "layers": {"b1": rng.standard_normal((2, 5)).astype(
+                  ml_dtypes.bfloat16), "b0": rng.standard_normal(
+                  (2, 5)).astype(np.float32)}}
+    m = {k: v for k, v in (("w", rng.standard_normal((4, 3)).astype(
+        np.float32)), ("layers", {"b1": np.ones((2, 5), np.float32),
+                                  "b0": np.zeros((2, 5), np.float32)}))}
+    v = {"w": np.abs(m["w"]), "layers": {"b1": np.full((2, 5), 2.0,
+                                                       np.float32),
+                                         "b0": np.ones((2, 5), np.float32)}}
+    return params, np.int32(3), m, v
+
+
+def test_training_state_crosses_between_packages(tmp_path, codec):
+    """A (params, AdamWState) checkpoint — the trainers' — written by the
+    port restores under ``repro.checkpoint`` with equal leaves and an
+    ``AdamWState``, and the JAX package's restores in the port the same
+    way; the two files are the same bytes."""
+    import jax
+
+    from repro.optim import adamw as jadamw
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.optim import adamw as tadamw
+
+    params, step, m, v = _train_state(11)
+    jstate = (jax.tree_util.tree_map(jnp.asarray, params),
+              jadamw.AdamWState(jnp.int32(step), m, v))
+    tparams = params_from_numpy(params, "cpu")
+    tstate = (tparams, tadamw.AdamWState(
+        torch.tensor(step, dtype=torch.int32), params_from_numpy(m, "cpu"),
+        params_from_numpy(v, "cpu")))
+    jpath, tpath = str(tmp_path / "j.ckpt"), str(tmp_path / "t.ckpt")
+    jckpt.save(jpath, jstate, step=3)
+    tckpt.save(tpath, tstate, step=3)
+    with open(jpath, "rb") as f, open(tpath, "rb") as g:
+        assert f.read() == g.read()
+    back, s = jckpt.restore(tpath, jstate)
+    assert s == 3 and isinstance(back[1], jadamw.AdamWState)
+    assert back[0]["w"].dtype == jnp.bfloat16 and back[1].step == 3
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(jstate)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    got, s = tckpt.restore(jpath, tstate)
+    assert s == 3 and isinstance(got[1], tadamw.AdamWState)
+    assert got[1].step.dtype == torch.int32 and int(got[1].step) == 3
+    for a, b in zip(_flat(got), _flat(tstate)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_a_stored_zlib_file_restores_in_the_jax_package(tmp_path,
+                                                         monkeypatch):
+    """``ZLIB_LEVEL = 0`` (stored blocks: a full-width training state
+    written in seconds) is still the JAX package's file format."""
+    monkeypatch.setattr(tckpt_mod, "zstandard", None)
+    monkeypatch.setattr(tckpt_mod, "ZLIB_LEVEL", 0)
+    tree = _np_tree()
+    path = str(tmp_path / "s.ckpt")
+    ck = tckpt.AsyncCheckpointer()
+    ck.save(path, _torch_tree(tree), step=5)
+    ck.wait()
+    back, step = jckpt.restore(path, _jax_tree(tree))
+    assert step == 5
+    _same_tree(back, _jax_tree(tree))

@@ -30,7 +30,9 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, split_plan,
 )
 from repro_torch.kernels.splits import sm_count  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_bwd,
+)
 from repro_torch.kernels.grouped_matmul import grouped_matmul  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import init_model  # noqa: E402
@@ -861,3 +863,219 @@ def test_cluster_migrates_and_restores_from_a_checkpoint(dev, tmp_path):
     c = cl.replicas[cl._home["c"]].requests["c"]
     assert len(c.generated) == 24 and all(0 <= t < cfg.vocab
                                           for t in c.generated)
+
+
+# ------------------------------------------------------------- training
+# (B, H, KV, Sq, Sk, hd, vd, causal, window, q_offset): K3's backward at
+# the training paths' masks and widths, cut short — internlm2 (16 over
+# 8, hd 128, causal), gemma3's local layer (4 over 1, hd 256, window
+# 512), whisper's encoder (non-causal, hd 64) and cross-attention (Sq 64
+# over 300 keys), MLA (q/k 192, V 128 padded) — GQA groups of 1 to 16,
+# ragged lengths and widths (the hd 16, 32 and 24 templates), an
+# offset, and the smoke shape, whose last two rows keep no key
+BWD_SHAPES = [
+    (1, 16, 8, 256, 256, 128, 128, True, 0, 0),
+    (1, 4, 1, 640, 640, 256, 256, True, 512, 0),
+    (1, 8, 8, 300, 300, 64, 64, False, 0, 0),
+    (1, 8, 8, 64, 300, 64, 64, False, 0, 0),
+    (1, 16, 16, 160, 160, 192, 128, True, 0, 0),
+    (2, 16, 1, 100, 100, 64, 64, True, 0, 0),
+    (2, 6, 3, 65, 100, 24, 24, False, 0, 0),
+    (1, 4, 2, 37, 37, 16, 16, True, 4, 5),
+    (1, 4, 2, 50, 157, 128, 128, True, 0, 107),
+    (1, 2, 1, 33, 97, 256, 256, True, 16, 64),
+    (2, 4, 4, 130, 130, 32, 32, True, 0, 0),
+]
+#: f32 gradients: the kernel and autodiff of the plain version differ in
+#: the order of their f32 sums over up to 1,500 keys or 16 heads × Sq
+#: rows, whose terms cancel: 1e-4 of the largest |gradient|
+BWD_F32_RTOL = 1e-4
+#: bf16: the kernel rounds P and dS to bf16 as tensor-core operands
+#: (FlashAttention-2's choice) and D from the rounded output; emulated on
+#: the CPU at these masks this moves a gradient by at most one bf16 ulp
+#: of the largest |gradient|; the limit is two
+BWD_BF16_ULPS = 2
+
+
+def _bwd_atol(plain):
+    big = plain.float().abs().max().item()
+    if plain.dtype == torch.float32:
+        return BWD_F32_RTOL * max(big, 1.0)
+    return BWD_BF16_ULPS * 2.0 ** (math.floor(math.log2(big)) - 7)
+
+
+def _grads(fn, dout, *inputs):
+    """(output, gradient of each input) of ``fn`` under ``dout``."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out.backward(dout)
+    return (out,) + tuple(t.grad for t in leaves)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,sq,sk,hd,vd,causal,window,q_offset",
+                         BWD_SHAPES)
+def test_flash_backward_matches_plain(dev, dtype, b, h, kv, sq, sk, hd, vd,
+                                      causal, window, q_offset):
+    """``ops.flash_attention`` with inputs that need a gradient: K3 once
+    (saving the LSE) and its backward once; dq, dk and dv against
+    autodiff of the plain version on the card."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(7 * sq + hd + vd)
+    q = _rand(gen, dev, dt, b, h, sq, hd)
+    k = _rand(gen, dev, dt, b, kv, sk, hd)
+    v = _rand(gen, dev, dt, b, sk, kv, vd).transpose(1, 2)
+    dout = _rand(gen, dev, dt, b, h, sq, vd)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+
+    def attend(*t):
+        return ops.flash_attention(*t, **kw)
+
+    ops.reset_launch_counts()
+    got = _grads(attend, dout, q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 1
+    assert flash_attention_bwd.launches == 1
+    with ops.plain_on_card():
+        want = _grads(attend, dout, q, k, v)
+    assert flash_attention.launches == 1
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert g.dtype == dt and g.shape == w.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        atol = _atol(w) if name == "out" else _bwd_atol(w)
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_flash_backward_of_a_row_without_a_key(dev):
+    """Rows that keep no key took the mean of V over the Sk keys, a
+    constant score: their dq is exactly 0, and dv gets dO / Sk from each
+    (what autodiff of the plain version gives)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, h, kv, s, hd = 1, 4, 2, 37, 16
+    q = _rand(gen, dev, torch.float32, b, h, s, hd)
+    k = _rand(gen, dev, torch.float32, b, kv, s, hd)
+    v = _rand(gen, dev, torch.float32, b, kv, s, hd)
+    dout = torch.zeros(b, h, s, hd, device=dev)
+    dout[:, :, 35:] = _rand(gen, dev, torch.float32, b, h, 2, hd)
+    kw = dict(causal=True, window=4, q_offset=5)  # rows 35, 36 keep none
+    _, dq, dk, dv = _grads(lambda *t: ops.flash_attention(*t, **kw), dout,
+                           q, k, v)
+    assert torch.equal(dq, torch.zeros_like(dq))
+    assert torch.equal(dk, torch.zeros_like(dk))
+    want = dout[:, :, 35:].reshape(b, kv, 2 * h // kv, hd).sum(2) / s
+    torch.testing.assert_close(dv, want[:, :, None].expand_as(dv),
+                               atol=1e-6, rtol=0)
+
+
+def test_flash_without_a_gradient_launches_as_the_serving_path(dev):
+    """No input needs a gradient, or grad mode is off: K3 once, no LSE
+    saved, no backward — the serving path's launch."""
+    q = torch.randn(1, 4, 64, 64, device=dev).bfloat16()
+    ops.reset_launch_counts()
+    ops.flash_attention(q, q[:, :2], q[:, :2])
+    with torch.no_grad():
+        ops.flash_attention(q.requires_grad_(), q[:, :2], q[:, :2])
+    assert flash_attention.launches == 2
+    assert flash_attention_bwd.launches == 0
+
+
+TRAIN_CAPACITY = 512  # granite-moe's _capacity(cfg, 2048)
+GMM_BWD_SHAPES = [  # (E, C, D, F): granite's training gate/up and down
+    # at two sequences a microbatch, ragged smoke shapes
+    (40, 2 * TRAIN_CAPACITY, 1536, 512), (40, 2 * TRAIN_CAPACITY, 512, 1536),
+    (3, 5, 72, 40), (2, 3, 16, 24),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,d,f", GMM_BWD_SHAPES)
+def test_grouped_matmul_backward_matches_plain(dev, dtype, e, c, d, f):
+    """``ops.grouped_matmul`` with inputs that need a gradient: K5 once
+    forward and twice backward (dX = dY W^T, dW = X^T dY on transposed
+    copies); every gradient within one ulp of autodiff of the plain
+    version (both sum in f32 and round once)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(e * c + d + f + 1)
+    x = torch.randn(e, c, d, generator=g, device=dev).to(dt)
+    w = (torch.randn(e, d, f, generator=g, device=dev) / math.sqrt(d)).to(dt)
+    dy = torch.randn(e, c, f, generator=g, device=dev).to(dt)
+    ops.reset_launch_counts()
+    got = _grads(ops.grouped_matmul, dy, x, w)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == 3
+    with ops.plain_on_card():
+        want = _grads(ops.grouped_matmul, dy, x, w)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == dt and g_.shape == w_.shape
+        torch.testing.assert_close(g_.float(), w_.float(), atol=_atol(w_),
+                                   rtol=0)
+
+
+def test_kernels_without_a_backward_raise_when_a_gradient_is_needed(dev):
+    """K6 (and the decode kernels) on a CUDA tensor that needs a
+    gradient raise, naming the ROADMAP item; under no_grad they run."""
+    x, dt, A, Bm, C = _ssd_inputs(dev, 1, 64, 2, 16, 8)
+    x.requires_grad_()
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        ops.ssd_scan(x, dt, A, Bm, C, 32)
+    with torch.no_grad():
+        assert ops.ssd_scan(x, dt, A, Bm, C, 32).shape == x.shape
+    q = torch.randn(2, 4, 16, device=dev, requires_grad=True)
+    kc = torch.randn(2, 2, 8, 16, device=dev)
+    pos = torch.tensor([3, 5], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="decode only"):
+        ops.decode_attention(q, kc, kc, pos)
+
+
+def _train_batch(cfg, dev, b=2, s=64):
+    g = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev,
+                           dtype=torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    return {"tokens": tokens, "labels": labels}
+
+
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "granite-moe-3b-a800m"])
+def test_train_step_through_the_kernels_matches_plain(dev, name):
+    """A smoke model's loss and gradient (f32, remat on) through the
+    kernels: K3 forward twice per layer (the recompute), its backward
+    once, K5 twelve times per MoE layer; inside ``plain_on_card`` (its
+    recompute on autograd's device thread too) no launch.  Every leaf
+    non-zero and within 1e-2 of the plain gradient (chip_smoke.py's
+    TRAIN_REF_F32_RTOL: the bf16 cotangent rounding compounds last-bit
+    differences)."""
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    cfg = ARCHS[name].smoke()
+    params = init_model(cfg, 0, dtype=torch.float32, device=dev)
+    batch = _train_batch(cfg, dev)
+    ops.reset_launch_counts()
+    loss, grads = value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize()
+    n_moe = cfg.n_layers if cfg.moe is not None else 0
+    assert flash_attention.launches == 2 * cfg.n_layers
+    assert flash_attention_bwd.launches == cfg.n_layers
+    assert grouped_matmul.launches == 12 * n_moe
+    with ops.plain_on_card():
+        p_loss, p_grads = value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 2 * cfg.n_layers
+    assert flash_attention_bwd.launches == cfg.n_layers
+    assert abs(loss.item() - p_loss.item()) <= 1e-5
+    for g, w in zip(tree_leaves(grads), tree_leaves(p_grads)):
+        assert g.norm() > 0 and w.norm() > 0
+        assert ((g - w).norm() / w.norm()).item() <= 1e-2
+
+
+def test_mamba_train_step_on_the_card_raises(dev):
+    """K6 has no backward kernel: a Mamba-2 train step on the card stops
+    at the scan, naming the ROADMAP item."""
+    from repro_torch.train.train_step import value_and_grad
+
+    cfg = ARCHS["mamba2-2.7b"].smoke()
+    params = init_model(cfg, 0, device=dev)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        value_and_grad(cfg, params, _train_batch(cfg, dev))

@@ -68,6 +68,16 @@ def test_every_module_is_listed():
         "repro_torch.checkpoint._msgpack",
         "repro_torch.dist.fault",
         "repro_torch.tree",
+        "repro_torch.optim",
+        "repro_torch.optim.adamw",
+        "repro_torch.train",
+        "repro_torch.train.train_step",
+        "repro_torch.train.pressure",
+        "repro_torch.train.trainer",
+        "repro_torch.data",
+        "repro_torch.data.pipeline",
+        "repro_torch.launch.train",
+        "repro_torch.dist.compression",
     ):
         assert expected in names
 
@@ -161,6 +171,17 @@ def test_port_imports_and_serves_without_jax_or_repro():
         assert rep.completed == rep.extras["admitted"] >= 1
         assert rep.extras["rate_limited"] >= 1
         assert cl.ckpt_restored_requests >= 1
+        # the training loop: two steps, a checkpoint, a resume
+        from repro_torch.configs import SHAPES
+        from repro_torch.train import Trainer, TrainerConfig
+        with tempfile.TemporaryDirectory() as d:
+            for steps in (2, 3):
+                out = Trainer(ARCHS["internlm2-1.8b"].smoke(),
+                              SHAPES["train_4k"], TrainerConfig(
+                                  steps=steps, ckpt_every=2, log_every=1,
+                                  ckpt_dir=d, device="cpu"),
+                              batch=2, seq=16).run()
+                assert out["final_step"] == steps
         bad = sorted(m for m in sys.modules
                      if m == "repro" or m.startswith("repro.")
                      or m in ("jax", "msgpack")
