@@ -9,7 +9,7 @@ Phases, each printing one JSON line (or one per kernel or run):
 
 1. ``device`` — the card as ``nvidia-smi`` names it, its power limit, and
    the torch/CUDA versions;
-2. ``build`` — nvcc builds the six CUDA sources of
+2. ``build`` — nvcc builds the seven CUDA sources of
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once);
 3. ``kernel`` — each kernel against its plain PyTorch version on the card,
    in the working dtype, on inputs drawn from a seeded generator: K1/K2
@@ -134,21 +134,30 @@ Phases, each printing one JSON line (or one per kernel or run):
    products (dX = dY W^T, dW = X^T dY) at granite-moe's training
    capacity, timed against their bounds, the plain versions and SDPA's
    backward (with the mask and with its causal flag) or ``torch.bmm``;
-   ``train-internlm2``: the port's ``Trainer`` on internlm2-1.8b at full
-   width and depth (B 4 × S 2,048 of ``SHAPES["train_4k"]``, 4 steps of 2
-   microbatches, a checkpoint every 2 steps in the JAX package's file
-   format), a second Trainer resuming from step 4 to 6, and a 2-step
-   int8 error-feedback gradient-compression run: every loss finite, K3
-   forward 2 × 24 × microbatches × steps (the remat recomputes it), its
-   backward 24 × microbatches × steps, no decode kernel, with step
-   seconds, tokens/s and peak memory; ``train-granite``: granite-moe at
-   full width and 4 of 32 layers, 2 steps, K5 12 times per MoE layer of
-   every microbatch (3 forward, 3 recomputed, 6 backward) and every
-   launched K5 shape held to the plain version; ``train-reference``: the
-   loss and every parameter leaf's gradient through the kernels against
-   inside ``ops.plain_on_card`` (internlm2 and granite at 2 layers,
-   gemma3's 6-layer unit, whisper-base whole; f32 and bf16), and a
-   mamba2 train step refused (K6 has no backward kernel yet).
+   K6's backward (``ssd_scan_bwd``, f32) at mamba2's and zamba2's
+   training microbatch (B 2 x S 2,048), a ragged S and a one-chunk S:
+   all five gradients within SSD_BWD_RTOL of autodiff of the plain scan,
+   a second launch bit-equal, timed against its operations bound and the
+   plain autodiff; ``train-internlm2``: the port's ``Trainer`` on
+   internlm2-1.8b at full width and depth (B 4 × S 2,048 of
+   ``SHAPES["train_4k"]``, 4 steps of 2 microbatches, a checkpoint every
+   2 steps in the JAX package's file format), a second Trainer resuming
+   from step 4 to 6, and a 2-step int8 error-feedback
+   gradient-compression run: every loss finite, K3 forward 2 × 24 ×
+   microbatches × steps (the remat recomputes it), its backward 24 ×
+   microbatches × steps, no decode kernel, with step seconds, tokens/s
+   and peak memory; ``train-granite``: granite-moe at full width and 4 of
+   32 layers, 2 steps, K5 12 times per MoE layer of every microbatch (3
+   forward, 3 recomputed, 6 backward) and every launched K5 shape held to
+   the plain version; ``train-mamba2``: mamba2-2.7b at full width and
+   depth (64 layers), the same batch, 3 steps of 2 microbatches, K6
+   2 × 64 × microbatches × steps and its backward 64 × microbatches ×
+   steps, no other kernel; ``train-reference``: the loss and every
+   parameter leaf's gradient through the kernels against inside
+   ``ops.plain_on_card`` (internlm2, granite and mamba2 at 2 layers,
+   gemma3's 6-layer unit, zamba2's unit of 5 Mamba-2 blocks and the
+   shared attention, whisper-base whole; f32 and bf16), with K6's
+   backward launched for the Mamba-2 models.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1.  Without a
@@ -409,6 +418,23 @@ TRAIN_FLASH_CASES = [
     ("whisper_encoder", 2, 8, 8, 1500, 64, 64, False, 0),
     ("mla", 2, 128, 128, 160, 192, 128, True, 0),
 ]
+#: K6's backward against autodiff of the plain scan on the card, in f32,
+#: of max |plain| (stated before the first card run, as
+#: tests/test_torch_cuda.py's SSD_BWD_RTOL): the same f32 terms summed in
+#: other orders; dx, dB and dC within 1e-4 (the CPU spread of the plain
+#: backward against autograd is at most 3e-7), ddt and dA within 1e-3:
+#: their terms, the reverse running sums of dseg, cancel (on a CPU 1.6e-5
+#: for dA, and an f32 autograd against an f64 one 1.8e-4 at a chunk of
+#: 256)
+SSD_BWD_RTOL = {"dx": 1e-4, "ddt": 1e-3, "dA": 1e-3, "dB": 1e-4,
+                "dC": 1e-4}
+#: the K6 backward case in the kernels line: mamba2's training microbatch
+SSD_BWD_LINE_CASE = "mamba2"
+#: train-mamba2: mamba2-2.7b at full width and depth (64 layers: weights,
+#: gradients and AdamW moments about 16 bytes a parameter, 45 GB), the
+#: train-internlm2 phase's batch, 3 steps of TRAIN_MICRO microbatches, no
+#: checkpoint
+MAMBA_TRAIN_STEPS = 3
 #: train-internlm2: internlm2-1.8b at full width and depth, SHAPES
 #: ["train_4k"] cut from a global batch of 256 to 4 and from 4,096
 #: positions to 2,048 (memory and time on one card)
@@ -445,12 +471,24 @@ GRANITE_TRAIN_STEPS = 2
 #:   router's and the norms' gradients (its CPU bf16-against-f32 spread
 #:   was 0.215); the exact f32 case above holds K5's backward tight.
 #: A missing or wrong gradient reads near 1.
+#: mamba2 (2 layers) and zamba2 (one unit: 5 Mamba-2 blocks and the
+#: shared attention), stated before their first card run: in the exact
+#: case 1e-3, since A_log's and dt_bias's gradients sum dA and ddt, whose
+#: terms cancel (on a CPU two f32 orders of the scan's backward move
+#: A_log's by 1.4e-4 of its norm); with the rounding 1e-2 and 2e-2 (on a
+#: CPU, the port against the JAX package at smoke size read 1.6e-3 at 2
+#: layers and 7.6e-3 at 14); in bf16 0.1 and 0.15 (the CPU read 0.019 and
+#: 0.077, and each package's own bf16 gradient of zamba2 differs from its
+#: f32 one by 0.10).
 REF_TRAIN_BATCH, REF_TRAIN_SEQ = 2, 640
 TRAIN_REF_EXACT_RTOL = 1e-4
+TRAIN_REF_EXACT_RTOL_SSM = 1e-3
 TRAIN_REF_F32_RTOL = {"internlm2-1.8b": 6e-4, "gemma3-1b": 8e-3,
-                      "granite-moe-3b-a800m": 6e-4, "whisper-base": 8e-3}
+                      "granite-moe-3b-a800m": 6e-4, "whisper-base": 8e-3,
+                      "mamba2-2.7b": 1e-2, "zamba2-1.2b": 2e-2}
 TRAIN_REF_BF16_RTOL = {"internlm2-1.8b": 0.035, "gemma3-1b": 0.062,
-                       "granite-moe-3b-a800m": 0.2, "whisper-base": 0.038}
+                       "granite-moe-3b-a800m": 0.2, "whisper-base": 0.038,
+                       "mamba2-2.7b": 0.1, "zamba2-1.2b": 0.15}
 
 
 class CheckFailed(Exception):
@@ -1783,19 +1821,21 @@ def moe_reference_runs(torch, cfg, ops, dtype, run, prompt, rows, phase,
 
 
 # ------------------------------------------------------------ mamba2, zamba2
+def ssd_dims(cfg):
+    """(nh, hd, ds, chunk) of a Mamba-2 config's scans."""
+    ssm = cfg.ssm
+    return (ssm.n_heads(cfg.d_model), ssm.head_dim, ssm.d_state,
+            ssm.chunk_size)
+
+
 def ssd_cases(m_cfg, z_cfg):
     """(name, B, S, nh, hd, ds, chunk) of K6's kernel phase: mamba2
     prefills of 32, 65, 256, 768 and 1024 tokens, zamba2's of 1024, a
     batch of 3 ragged mamba2 prompts, and a ragged smoke shape."""
-    def dims(cfg):
-        ssm = cfg.ssm
-        return (ssm.n_heads(cfg.d_model), ssm.head_dim, ssm.d_state,
-                ssm.chunk_size)
-
-    cases = [(f"mamba2_s{s}", 1, s, *dims(m_cfg))
+    cases = [(f"mamba2_s{s}", 1, s, *ssd_dims(m_cfg))
              for s in (32, 65, 256, 768, 1024)]
-    cases.append(("zamba2_s1024", 1, 1024, *dims(z_cfg)))
-    cases.append(("mamba2_b3_s300", 3, 300, *dims(m_cfg)))
+    cases.append(("zamba2_s1024", 1, 1024, *ssd_dims(z_cfg)))
+    cases.append(("mamba2_b3_s300", 3, 300, *ssd_dims(m_cfg)))
     return cases + [("smoke", 1, 45, 3, 16, 8, 32)]
 
 
@@ -2849,6 +2889,98 @@ def train_kernel_phase(torch, F, ref, timer, granite_cfg):
     return {**results["internlm2"], "max_abs_err": worst}
 
 
+def train_ssd_cases(m_cfg, z_cfg):
+    """(name, B, S, nh, hd, ds, chunk) of K6's backward in train-kernel:
+    mamba2's and zamba2's training microbatch (B 2 x S 2,048 of the
+    train-mamba2 phase: 8 whole chunks), a ragged S (1,000: three whole
+    chunks and 232 positions) and a one-chunk S (200)."""
+    micro = TRAIN_BATCH // TRAIN_MICRO
+    return [("mamba2", micro, TRAIN_SEQ, *ssd_dims(m_cfg)),
+            ("zamba2", micro, TRAIN_SEQ, *ssd_dims(z_cfg)),
+            ("mamba2_ragged", 1, 1000, *ssd_dims(m_cfg)),
+            ("mamba2_one_chunk", micro, 200, *ssd_dims(m_cfg))]
+
+
+def ssd_bwd_work(b, s, nh, hd, ds, chunk):
+    """(bytes, operations) K6's backward needs: x, dy, dt, A, B and C read
+    and dx, ddt, dA, dB and dC written once, in f32; per chunk the
+    scores, dC and dB of the intra terms once (the heads' dscores summed
+    first: 6 ds a causal pair), and per head dM and dx (4 hd a pair),
+    dC_in and G_c for every chunk after the first and S_c, the state's
+    dx and v for every chunk but the last (4 and 6 hd ds a row), 2
+    operations a multiply-add (``ssd_scan_bwd.cu``'s note)."""
+    n_bytes = 4 * (3 * b * s * nh * hd + 2 * b * s * nh + 2 * nh
+                   + 4 * b * s * ds)
+    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    flops = b * (6 * pairs * ds + nh * (
+        4 * pairs * hd + 4 * sum(lens[1:]) * hd * ds
+        + 6 * sum(lens[:-1]) * hd * ds))
+    return n_bytes, flops
+
+
+def ssd_bwd_kernel_phase(torch, ref, timer, cases):
+    """K6's backward (``ssd_scan_bwd``) against autodiff of the plain scan
+    in f32 at ``cases``: all five gradients within SSD_BWD_RTOL of max
+    |plain|, and a second launch bit-equal to the first; timed against
+    the plain autodiff and its operations bound (no PyTorch call computes
+    the scan: library_ms is null), with one call's host time.  Returns
+    its kernels-line entry: the SSD_BWD_LINE_CASE case, with the largest
+    error of every case."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    results, worst = {}, 0.0
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    for name, b, s, nh, hd, ds, chunk in cases:
+        args = ssd_inputs(torch, gen, b, s, nh, hd, ds)
+        dy = torch.randn(b, s, nh, hd, generator=gen, device=DEV)
+        got = ssd_scan_bwd(*args, dy, chunk)
+        again = ssd_scan_bwd(*args, dy, chunk)
+        leaves = [t.detach().clone().requires_grad_() for t in args]
+        y = ref.ssd_scan_ref(*leaves, chunk)
+        want = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+              f"ssd_scan_bwd {name}: two launches differ")
+        errs = {}
+        for gname, g, w in zip(names, got, want):
+            check(torch.isfinite(g).all().item(),
+                  f"ssd_scan_bwd {name}: non-finite {gname}")
+            err = (g - w).abs().max().item()
+            atol = SSD_BWD_RTOL[gname] * w.abs().max().item()
+            check(err <= atol, f"ssd_scan_bwd {name} {gname}: max err "
+                  f"{err} > {atol}")
+            errs[gname] = {"max_abs_err": err, "tolerance": atol,
+                           "rel_to_max": err / w.abs().max().item()}
+        worst = max([worst] + [e["max_abs_err"] for e in errs.values()])
+        n_bytes, flops = ssd_bwd_work(b, s, nh, hd, ds, chunk)
+        bound_ms, bound_by = bound(n_bytes, flops, torch.float32, torch)
+        late = timer.late
+        r = {
+            "phase": "train-kernel", "name": "ssd_scan_bwd", "case": name,
+            "shape": {"B": b, "S": s, "nh": nh, "hd": hd, "ds": ds,
+                      "chunk": chunk},
+            "errors": errs, "deterministic": True,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "ms": time_ms(torch, lambda: ssd_scan_bwd(*args, dy, chunk),
+                          timer),
+            "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
+                y, leaves, dy, retain_graph=True), timer),
+            "library_ms": None,
+            "host_ms": host_ms(torch, lambda: ssd_scan_bwd(*args, dy,
+                                                           chunk)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": n_bytes, "flops": flops,
+        }
+        r["late_windows"] = timer.late - late
+        emit(with_rates(r))
+        results[name] = r
+        del args, dy, got, again, leaves, y, want
+        torch.cuda.empty_cache()
+    return {**results[SSD_BWD_LINE_CASE], "max_abs_err": worst}
+
+
 def checkpoint_meta(path):
     """The ``meta`` map of a checkpoint file, from its first bytes
     inflated, after checking that they open the JAX package's container:
@@ -2924,18 +3056,22 @@ def train_run(torch, ops, cfg, tcfg, phase, extra, smi):
     return r
 
 
-def check_train_launches(r, n_attn, n_moe, steps, micro, phase):
+def check_train_launches(r, n_attn, n_moe, steps, micro, phase,
+                         n_mamba=0):
     """K3 forward twice per attention layer of every microbatch (the
     unit's remat recomputes it), its backward once; K5 three times per
-    MoE layer forward, three in the recompute and six backward; no
-    decode kernel and no K6."""
+    MoE layer forward, three in the recompute and six backward; K6
+    twice per Mamba-2 layer of the repeated unit, its backward once; no
+    decode kernel."""
     la = r["launches"]
     want = {
         "flash_attention": 2 * n_attn * micro * steps,
         "flash_attention_bwd": n_attn * micro * steps,
         "grouped_matmul": 12 * n_moe * micro * steps,
+        "ssd_scan": 2 * n_mamba * micro * steps,
+        "ssd_scan_bwd": n_mamba * micro * steps,
         "paged_decode_attention": 0, "paged_decode_attention_int8": 0,
-        "decode_attention": 0, "ssd_scan": 0,
+        "decode_attention": 0,
     }
     for name, n in want.items():
         check(la[name] == n, f"{phase}: {name} launched {la[name]} times, "
@@ -3045,6 +3181,32 @@ def train_granite(torch, ARCHS, ops, ref, smi, gmm_checked):
     return r
 
 
+def train_mamba2(torch, ARCHS, ops, smi):
+    """mamba2-2.7b at full width and depth through the port's Trainer:
+    TRAIN_BATCH x TRAIN_SEQ, MAMBA_TRAIN_STEPS steps of TRAIN_MICRO
+    microbatches, no checkpoint; K6 forward twice per layer of every
+    microbatch (the remat recomputes it), its backward once."""
+    import shutil
+
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import TrainerConfig
+
+    cfg = ARCHS["mamba2-2.7b"]
+    root = ROOT / "build" / "chip_train"
+    tcfg = TrainerConfig(
+        steps=MAMBA_TRAIN_STEPS, microbatches=TRAIN_MICRO,
+        ckpt_every=10**9, log_every=1, seed=SEED,
+        ckpt_dir=str(root / "mamba2"), device=DEV,
+        opt=AdamWConfig(warmup_steps=1, total_steps=MAMBA_TRAIN_STEPS))
+    r = train_run(torch, ops, cfg, tcfg, "train-mamba2", {}, smi)
+    check(r["steps"] == list(range(1, MAMBA_TRAIN_STEPS + 1)),
+          f"train-mamba2: logged steps {r['steps']}")
+    check_train_launches(r, 0, 0, MAMBA_TRAIN_STEPS, TRAIN_MICRO,
+                         "train-mamba2", n_mamba=cfg.n_layers)
+    shutil.rmtree(root, ignore_errors=True)
+    return r
+
+
 def _leaf_names(tree, prefix=""):
     """Each leaf's path, in ``tree_leaves`` order (dict keys sorted)."""
     if isinstance(tree, dict):
@@ -3060,13 +3222,17 @@ def train_reference(torch, ARCHS, init_model, ops):
     """The loss and every parameter leaf's gradient through the kernels
     against inside ``ops.plain_on_card``, at full width: internlm2 and
     granite-moe at 2 layers, gemma3's 6-layer unit (5 local, 1 global),
-    whisper-base whole; in f32 parameters with ``bf16_grad`` the identity,
-    in f32 and in bf16.  Every leaf has a non-zero gradient on both paths,
-    within TRAIN_REF_EXACT_RTOL, TRAIN_REF_F32_RTOL or TRAIN_REF_BF16_RTOL.
-    Then a mamba2 train step on the card raises: K6 has no backward kernel
-    yet."""
+    whisper-base whole, mamba2 at 2 layers and zamba2's unit (5 Mamba-2
+    blocks and the shared attention); in f32 parameters with
+    ``bf16_grad`` the identity, in f32 and in bf16.  Every leaf has a
+    non-zero gradient on both paths, within TRAIN_REF_EXACT_RTOL
+    (TRAIN_REF_EXACT_RTOL_SSM for the Mamba-2 models),
+    TRAIN_REF_F32_RTOL or TRAIN_REF_BF16_RTOL; K3's backward ran where
+    the model attends, K5 where it routes, K6's backward where it
+    scans."""
     import dataclasses
 
+    import repro_torch.models.layers as layers
     import repro_torch.models.transformer as transformer
     from repro_torch.configs import SHAPES
     from repro_torch.data.pipeline import DataConfig, _host_batch
@@ -3081,12 +3247,21 @@ def train_reference(torch, ARCHS, init_model, ops):
         dataclasses.replace(ARCHS["granite-moe-3b-a800m"], n_layers=2,
                             pattern_repeats=None),
         ARCHS["whisper-base"],
+        dataclasses.replace(ARCHS["mamba2-2.7b"], n_layers=2,
+                            pattern_repeats=None),
+        dataclasses.replace(ARCHS["zamba2-1.2b"], n_layers=6,
+                            pattern_repeats=1, suffix_blocks=()),
     ]
-    boundary = transformer.bf16_grad
-    cases = (("float32_exact", torch.float32, TRAIN_REF_EXACT_RTOL),
-             ("float32", torch.float32, None),
-             ("bfloat16", torch.bfloat16, None))
+    # the residual boundaries (transformer's name) and the Mamba-2
+    # block's five (read from layers at call time)
+    boundary = (transformer.bf16_grad, layers.bf16_grad)
     for cfg in cuts:
+        blocks = set(cfg.block_pattern) | set(cfg.suffix_blocks)
+        ssm = cfg.ssm is not None
+        cases = (("float32_exact", torch.float32,
+                  TRAIN_REF_EXACT_RTOL_SSM if ssm else TRAIN_REF_EXACT_RTOL),
+                 ("float32", torch.float32, None),
+                 ("bfloat16", torch.bfloat16, None))
         for label, dtype, tol in cases:
             free_memory(torch)
             params = init_params(torch, cfg, init_model, dtype=dtype)
@@ -3094,7 +3269,7 @@ def train_reference(torch, ARCHS, init_model, ops):
                 cfg, SHAPES["train_4k"], DataConfig(seed=SEED), 0,
                 batch=REF_TRAIN_BATCH, seq=REF_TRAIN_SEQ).items()}
             if label == "float32_exact":
-                transformer.bf16_grad = lambda x: x
+                transformer.bf16_grad = layers.bf16_grad = lambda x: x
             try:
                 ops.reset_launch_counts()
                 loss, grads = value_and_grad(cfg, params, batch)
@@ -3104,7 +3279,7 @@ def train_reference(torch, ARCHS, init_model, ops):
                     p_loss, p_grads = value_and_grad(cfg, params, batch)
                 torch.cuda.synchronize()
             finally:
-                transformer.bf16_grad = boundary
+                transformer.bf16_grad, layers.bf16_grad = boundary
             names = _leaf_names(params)
             errs = {}
             for name, g, w in zip(names, tree_leaves(grads),
@@ -3127,43 +3302,36 @@ def train_reference(torch, ARCHS, init_model, ops):
                   "leaves": len(errs), "max_rel_err": errs[worst],
                   "worst_leaf": worst, "tolerance": tol,
                   "rel_err": errs, "launches": launches})
-            check(launches["flash_attention_bwd"] > 0,
+            check(blocks == {"mamba"} or launches["flash_attention_bwd"] > 0,
                   f"train-reference {cfg.name}: K3's backward never ran")
             check(cfg.moe is None or launches["grouped_matmul"] > 0,
                   f"train-reference {cfg.name}: K5 never ran")
+            check(not ssm or launches["ssd_scan_bwd"] > 0,
+                  f"train-reference {cfg.name}: K6's backward never ran")
             check(errs[worst] <= tol, f"train-reference {cfg.name} {label}: "
                   f"{worst} gradient {errs[worst]} from the plain one > {tol}")
             del params, grads, p_grads, batch, loss, p_loss
-    cfg = ARCHS["mamba2-2.7b"].smoke()
-    params = init_model(cfg, SEED, device=DEV)
-    batch = {k: torch.from_numpy(v).to(DEV) for k, v in _host_batch(
-        cfg, SHAPES["train_4k"], DataConfig(seed=SEED), 0, batch=2,
-        seq=64).items()}
-    try:
-        value_and_grad(cfg, params, batch)
-        raised = None
-    except NotImplementedError as exc:
-        raised = str(exc)
-    emit({"phase": "train-reference", "arch": cfg.name, "raised": raised})
-    check(raised is not None and "item 11b" in raised,
-          "train-reference: a mamba2 train step on the card did not raise "
-          "the K6 backward's NotImplementedError")
-    del params, batch
     free_memory(torch)
 
 
 def train_phases(torch, F, ARCHS, init_model, ops, ref, smi, gmm_checked):
-    """train-kernel, train-internlm2, train-granite and train-reference;
-    returns (K3 backward's kernels-line entry, the training runs)."""
+    """train-kernel (K3's and K5's backward, then K6's), train-internlm2,
+    train-granite, train-mamba2 and train-reference; returns (the
+    kernels-line entries of K3's and K6's backward, the training
+    runs)."""
     free_memory(torch)
     timer = Timer(torch)
-    kernel = train_kernel_phase(torch, F, ref, timer,
-                                ARCHS["granite-moe-3b-a800m"])
+    kernels = {"flash_attention_bwd": train_kernel_phase(
+        torch, F, ref, timer, ARCHS["granite-moe-3b-a800m"])}
+    kernels["ssd_scan_bwd"] = ssd_bwd_kernel_phase(
+        torch, ref, timer, train_ssd_cases(ARCHS["mamba2-2.7b"],
+                                           ARCHS["zamba2-1.2b"]))
     del timer
     runs = train_internlm2(torch, ARCHS, ops, smi)
     runs.append(train_granite(torch, ARCHS, ops, ref, smi, gmm_checked))
+    runs.append(train_mamba2(torch, ARCHS, ops, smi))
     train_reference(torch, ARCHS, init_model, ops)
-    return kernel, runs
+    return kernels, runs
 
 
 def _map_tensors(tree, fn):
@@ -3298,8 +3466,9 @@ def main(argv=None) -> int:
         del params
         torch.cuda.empty_cache()
     zoo = zoo_phases(torch, ARCHS, init_model, ops, calls, ref, gmm_checked)
-    kres["flash_attention_bwd"], train_runs = train_phases(
+    train_kernels, train_runs = train_phases(
         torch, F, ARCHS, init_model, ops, ref, smi, gmm_checked)
+    kres.update(train_kernels)
     emit_ssd_lines(torch, ssd_lines)
 
     replaces = {
@@ -3314,6 +3483,9 @@ def main(argv=None) -> int:
         "decode_attention": "src/repro/kernels/decode_attention.py:71",
         "grouped_matmul": "src/repro/kernels/moe_gmm.py:41",
         "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
+        # no Pallas twin: XLA differentiates the jnp twin of K6
+        "ssd_scan_bwd": "src/repro/models/blocks.py:430 _ssd_scan (its "
+                        "autodiff; no Pallas kernel)",
     }
     source = {
         "paged_decode_attention": "paged_decode.cu",
@@ -3323,6 +3495,7 @@ def main(argv=None) -> int:
         "decode_attention": "decode_attention.cu",
         "grouped_matmul": "grouped_matmul.cu",
         "ssd_scan": "ssd_scan.cu",
+        "ssd_scan_bwd": "ssd_scan_bwd.cu",
     }
     # launches on the main paths: the sum over the serving runs and the
     # training runs, each counted from zero

@@ -62,6 +62,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "launch_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P],
     },
+    "ssd_scan_bwd": {
+        "launch_ssd_scan_bwd": [*[_P] * 18, *[_I] * 6, _P],
+    },
 }
 #: the kernels' dtype codes (the ``dtype`` argument of every launch)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

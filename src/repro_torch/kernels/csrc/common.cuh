@@ -1,6 +1,6 @@
 // Helpers shared by the port's CUDA kernels: 16-byte loads of 8 elements
-// into f32 registers, and the element strides a kernel takes for a tensor
-// whose last dimension is contiguous.
+// into f32 registers, the element strides a kernel takes for a tensor
+// whose last dimension is contiguous, and the SSD scans' in-order sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,6 +33,30 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
+}
+
+// seg[t] = w[0] + ... + w[t] for t < n <= kMaxN, summed in order by the
+// calling thread with every sum rounded on its own (the plain version's
+// sequential cumsum gives the same bits); w is read 16 at a time, so that
+// the chain waits on the adds and not on the loads.  The SSD scan and its
+// backward sum each chunk's dt A so.
+template <int kMaxN>
+__device__ __forceinline__ float in_order_sum(const float* w, float* seg,
+                                              int n) {
+  float v = 0.f;
+  for (int t0 = 0; t0 < n; t0 += 16) {
+    float wv[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) wv[u] = w[min(t0 + u, kMaxN - 1)];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      if (t0 + u < n) {
+        v = __fadd_rn(v, wv[u]);
+        seg[t0 + u] = v;
+      }
+    }
+  }
+  return v;
 }
 
 }  // namespace repro_torch

@@ -97,6 +97,8 @@
 
 namespace {
 
+using repro_torch::in_order_sum;
+
 constexpr int kThreads = 128;  // every kernel
 constexpr int kTile = 64;      // query rows and key columns of one tile
 constexpr int kPitch = 68;     // shared-memory row pitch of 64-wide tiles
@@ -235,27 +237,6 @@ __device__ __forceinline__ void store_tile(float* __restrict__ y,
   }
 }
 
-// seg[t] = w[0] + ... + w[t] for t < n, summed in order by the calling
-// thread with every sum rounded on its own; w is read 16 at a time, so
-// that the chain waits on the adds and not on the loads
-__device__ __forceinline__ float in_order_sum(const float* w, float* seg,
-                                              int n) {
-  float v = 0.f;
-  for (int t0 = 0; t0 < n; t0 += 16) {
-    float wv[16];
-#pragma unroll
-    for (int u = 0; u < 16; ++u) wv[u] = w[min(t0 + u, kMaxChunk - 1)];
-#pragma unroll
-    for (int u = 0; u < 16; ++u) {
-      if (t0 + u < n) {
-        v = __fadd_rn(v, wv[u]);
-        seg[t0 + u] = v;
-      }
-    }
-  }
-  return v;
-}
-
 // ---------------------------------------------------------- pass 1
 // One score tile of chunk c, stored key-major: scores[j][i] = B[k0 + j] .
 // C[q0 + i] over ds, for the tile's (rt, kt) of the chunk's lower
@@ -370,7 +351,7 @@ ssd_chunk_state_kernel(const float* __restrict__ x,
   // positions past S add dt A = 0: their seg repeats the last one
   const int valid = static_cast<int>(min(static_cast<long long>(Q), S - pos0));
   if (tid == 0) {
-    const float v = in_order_sum(s_w, s_seg, valid);
+    const float v = in_order_sum<kMaxChunk>(s_w, s_seg, valid);
     for (int t = valid; t < Q; ++t) s_seg[t] = v;
   }
   __syncthreads();
@@ -653,7 +634,7 @@ ssd_one_chunk_kernel(const float* __restrict__ x,
     s_w[t] = __fmul_rn(dt[(bS + t) * nh + h], A[h]);
   }
   __syncthreads();
-  if (tid == 0) in_order_sum(s_w, s_seg, need);
+  if (tid == 0) in_order_sum<kMaxChunk>(s_w, s_seg, need);
   __syncthreads();
 
   const long long x_stride = static_cast<long long>(nh) * hd;

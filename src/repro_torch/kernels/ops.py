@@ -9,8 +9,9 @@ cannot see into, so a call whose inputs need a gradient goes through a
 ``torch.autograd.Function`` whose backward is a kernel too: K3's forward
 saving its log-sum-exp and K3's hand-written backward
 (``flash_attention_bwd.cu``); K5 forward and, for the gradients, K5
-twice more on transposed copies.  A kernel without a backward (K1, K2,
-K4: decode only; K6, whose backward kernel is ROADMAP Queue 1 item 11b)
+twice more on transposed copies; K6 forward and K6's hand-written
+backward (``ssd_scan_bwd.cu``), which recomputes the chunks' states from
+the saved inputs.  A kernel without a backward (K1, K2, K4: decode only)
 raises ``NotImplementedError`` on a CUDA tensor that needs a gradient.
 A call none of whose inputs needs a gradient, or made under
 ``torch.no_grad()``, launches exactly as the serving path always has.
@@ -40,11 +41,8 @@ WRAPPERS = (
     _decode.decode_attention,
     _gmm.grouped_matmul,
     _ssd.ssd_scan,
+    _ssd.ssd_scan_bwd,
 )
-
-#: the ROADMAP item that brings K6's backward kernel
-SSD_BACKWARD_ITEM = ("ROADMAP Queue 1 item 11b, the K6 backward kernel "
-                     "(Mamba-2 and zamba2 training on the card)")
 
 #: True inside :func:`plain_on_card` (per thread and task, not global)
 _PLAIN = contextvars.ContextVar("plain_on_card", default=False)
@@ -146,6 +144,24 @@ class _GroupedMatmul(torch.autograd.Function):
         return dx, dw
 
 
+class _SsdScan(torch.autograd.Function):
+    """K6 with K6's backward: the forward saves its inputs (x, dt, A, B,
+    C), from which the backward recomputes the chunks' states."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, C, chunk):
+        ctx.save_for_backward(x, dt, A, Bm, C)
+        ctx.chunk = chunk
+        return _ssd.ssd_scan(x, dt, A, Bm, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, Bm, C = ctx.saved_tensors
+        grads = _ssd.ssd_scan_bwd(x, dt, A, Bm, C,
+                                  dy.float().contiguous(), ctx.chunk)
+        return (*grads, None)
+
+
 def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens, *,
                            q_per_kv=1):
     """[BH, hd] attention of each row over its pool pages (see ``ref``).
@@ -227,8 +243,11 @@ def grouped_matmul(x, w):
 
 def ssd_scan(x, dt, A, Bm, C, chunk):
     """[B, S, nh, hd] Mamba-2 chunked SSD scan in f32, without the D skip
-    and the gate (K6): every Mamba-2 prefill layer."""
+    and the gate (K6): every Mamba-2 prefill and training layer.  Where
+    an input needs a gradient, the kernel runs through
+    :class:`_SsdScan`."""
     if _on_cpu(x):
         return ref.ssd_scan_ref(x, dt, A, Bm, C, chunk)
-    _no_backward("ssd_scan", SSD_BACKWARD_ITEM, x, dt, A, Bm, C)
+    if _needs_grad(x, dt, A, Bm, C):
+        return _SsdScan.apply(x, dt, A, Bm, C, chunk)
     return _ssd.ssd_scan(x, dt, A, Bm, C, chunk)

@@ -212,3 +212,121 @@ def ssd_scan_ref(
     )[..., None]
     y = (y_intra + y_inter).reshape(b, nc * chunk, nh, hd)
     return y[:, :s] if pad else y
+
+
+def ssd_scan_bwd_ref(
+    x: torch.Tensor,  # [B, S, nh, hd]
+    dt: torch.Tensor,  # [B, S, nh] f32, post-softplus
+    A: torch.Tensor,  # [nh] f32, negative
+    Bm: torch.Tensor,  # [B, S, ds]
+    C: torch.Tensor,  # [B, S, ds]
+    dy: torch.Tensor,  # [B, S, nh, hd]: the cotangent of y
+    chunk: int,
+):
+    """K6's backward written out, in the order of work of its kernel
+    (``csrc/ssd_scan_bwd.cu``), f32: returns (dx, ddt, dA, dB, dC), the
+    gradients of :func:`ssd_scan_ref`'s y under ``dy``.  Per chunk c and
+    head, with seg the running sum of dt A in the chunk, total its last
+    value, M_ij = (C_i . B_j) exp(seg_i - seg_j) dt_j (j <= i), H_in the
+    state [hd, ds] that enters the chunk and u_j = exp(total - seg_j) dt_j:
+
+    1. the chunk's seg and total, its outgoing state S_c = sum_j u_j x_j
+       B_j^T and G_c = sum_i exp(seg_i) dy_i C_i^T;
+    2. the recurrences: H_in(c + 1) = exp(total_c) H_in(c) + S_c forward,
+       dH_in(c) = exp(total_c) dH_in(c + 1) + G_c backward, and the
+       outgoing state's gradient dS_c = dH_in(c + 1);
+    3. intra-chunk, from dM_ij = dy_i . x_j: dx_j += sum_i M_ij dy_i;
+       per head ds_ij = dM_ij exp(seg_i - seg_j) dt_j, dC_i += sum_j ds_ij
+       B_j and dB_j += sum_i ds_ij C_i; ddt_j += sum_i dM_ij (C_i . B_j)
+       exp(seg_i - seg_j); W_ij = dM_ij M_ij gives dseg_i += sum_j W_ij
+       and dseg_j -= sum_i W_ij.  Inter-chunk: dC_i += exp(seg_i)
+       H_in^T dy_i, and dseg_i += C_i . that (= dy_i . y_inter_i).  The
+       outgoing state, v_j = x_j^T dS_c and q_j = v_j . B_j: dx_j += u_j
+       dS_c B_j, dB_j += u_j v_j, ddt_j += exp(total - seg_j) q_j,
+       dseg_j -= u_j q_j, dtotal += sum_j u_j q_j + exp(total) <dS_c,
+       H_in(c)>;
+    4. dtotal joins the last position's dseg; d(dt A)_t = sum_{i >= t}
+       dseg_i in the chunk, ddt_t += d(dt A)_t A, dA = sum_{b,t} d(dt A)_t
+       dt_t; dB and dC summed over the heads.
+
+    A ragged last chunk is zero padding with dt = 0, as in the forward:
+    every term of a pad position is 0 and its rows are sliced off."""
+    b, s, nh, hd = x.shape
+    ds = Bm.shape[-1]
+    nc = (s + chunk - 1) // chunk
+    pad = nc * chunk - s
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dy = torch.nn.functional.pad(dy, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, pad))
+    xc = x.reshape(b, nc, chunk, nh, hd).float()
+    dyc = dy.reshape(b, nc, chunk, nh, hd).float()
+    dtc = dt.reshape(b, nc, chunk, nh).float()
+    Bc = Bm.reshape(b, nc, chunk, ds).float()
+    Cc = C.reshape(b, nc, chunk, ds).float()
+    Af = A.float()
+
+    # 1. seg, total, the outgoing state S_c and G_c  [b, nc, nh, hd, ds]
+    seg = torch.cumsum(dtc * Af, dim=2)  # [b, nc, q, nh]
+    total = seg[:, :, -1, :]
+    u = torch.exp(total[:, :, None, :] - seg) * dtc
+    S_c = torch.einsum("bcqd,bcqhp->bchpd", Bc, u[..., None] * xc)
+    e_in = torch.exp(seg)
+    G_c = torch.einsum("bcqd,bcqhp->bchpd", Cc, e_in[..., None] * dyc)
+
+    # 2. H_in(c) forward, dS_c = dH_in(c + 1) backward
+    decay = torch.exp(total)[..., None, None]  # [b, nc, nh, 1, 1]
+    H = torch.zeros(b, nh, hd, ds, dtype=torch.float32, device=x.device)
+    H_in = []
+    for c in range(nc):
+        H_in.append(H)
+        H = decay[:, c] * H + S_c[:, c]
+    H_in = torch.stack(H_in, dim=1)
+    dH = torch.zeros_like(H)
+    dS = [None] * nc
+    for c in reversed(range(nc)):
+        dS[c] = dH
+        dH = decay[:, c] * dH + G_c[:, c]
+    dS = torch.stack(dS, dim=1)
+
+    # 3. intra-chunk, masked before the exp as the forward
+    rel = seg[:, :, :, None, :] - seg[:, :, None, :, :]  # [b,nc,qi,qj,nh]
+    causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device)
+    causal = torch.tril(causal)[None, None, :, :, None]
+    L = torch.exp(torch.where(causal, rel, float("-inf")))
+    scores = torch.einsum("bcid,bcjd->bcij", Cc, Bc)
+    M = scores[..., None] * L * dtc[:, :, None, :, :]
+    dM = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
+    dx = torch.einsum("bcijh,bcihp->bcjhp", M, dyc)
+    dsc = dM * L * dtc[:, :, None, :, :]
+    dC = torch.einsum("bcijh,bcjd->bcid", dsc, Bc)
+    dB = torch.einsum("bcijh,bcid->bcjd", dsc, Cc)
+    ddt = torch.einsum("bcijh,bcij->bcjh", dM * L, scores)
+    W = dM * M
+    dseg = W.sum(dim=3) - W.sum(dim=2)  # [b, nc, q, nh]
+    # inter-chunk
+    dC_in = torch.einsum("bcqhp,bchpd->bcqhd", dyc, H_in) * e_in[..., None]
+    dC = dC + dC_in.sum(dim=3)
+    dseg = dseg + torch.einsum("bcqhd,bcqd->bcqh", dC_in, Cc)
+    # the outgoing state
+    dx = dx + u[..., None] * torch.einsum("bchpd,bcqd->bcqhp", dS, Bc)
+    v = torch.einsum("bcqhp,bchpd->bcqhd", xc, dS)
+    dB = dB + (u[..., None] * v).sum(dim=3)
+    q = torch.einsum("bcqhd,bcqd->bcqh", v, Bc)
+    ddt = ddt + torch.exp(total[:, :, None, :] - seg) * q
+    dseg = dseg - u * q
+    dtotal = (u * q).sum(dim=2) + torch.exp(total) * (dS * H_in).sum(
+        dim=(-2, -1))
+
+    # 4. the cumsum's gradient, dA, and the pad rows sliced off
+    dseg[:, :, -1] += dtotal
+    d_dA = torch.flip(torch.cumsum(torch.flip(dseg, [2]), dim=2), [2])
+    ddt = ddt + d_dA * Af
+    dA = (d_dA * dtc).sum(dim=(0, 1, 2))
+    dx = dx.reshape(b, nc * chunk, nh, hd)[:, :s]
+    ddt = ddt.reshape(b, nc * chunk, nh)[:, :s]
+    dB = dB.reshape(b, nc * chunk, ds)[:, :s]
+    dC = dC.reshape(b, nc * chunk, ds)[:, :s]
+    return dx, ddt, dA, dB, dC

@@ -1,15 +1,18 @@
-"""Wrapper of the CUDA SSD-scan kernel K6 (``csrc/ssd_scan.cu``).
+"""Wrappers of the CUDA SSD-scan kernel K6 (``csrc/ssd_scan.cu``) and of
+its backward (``csrc/ssd_scan_bwd.cu``).
 
-It checks device, dtype, shape and contiguity and raises on anything the
-kernel does not take, allocates the output and, for a scan longer than
-one chunk, the kernel's scratch (per-chunk running decays, totals and
-states, and the chunks' score tiles and C^T tiles, in one buffer) with
+Each checks device, dtype, shape and contiguity and raises on anything
+its kernel does not take, allocates its outputs and scratch with
 ``torch.empty``, launches on the current stream without synchronising,
-raises if the launch reports an error, and adds one to ``launches`` (one
-per call, though the source runs two ``__global__`` kernels for it when
-S > chunk, one otherwise).  It takes CUDA tensors only: the plain
-version is
-:func:`repro_torch.kernels.ref.ssd_scan_ref`, and
+raises if the launch reports an error, and adds one to its ``launches``
+(one per call, though the sources run several ``__global__`` kernels for
+it).  The forward's scratch holds per-chunk running decays, totals and
+states, and the chunks' score tiles and C^T tiles, in one buffer; the
+backward's the same decays and totals, each chunk's incoming state and
+the gradient of its outgoing one, and per-head partials of dB, dC and
+dA.  They take CUDA tensors only: the plain versions are
+:func:`repro_torch.kernels.ref.ssd_scan_ref` and
+:func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`, and
 :mod:`repro_torch.kernels.ops` chooses between the two.
 """
 
@@ -26,18 +29,12 @@ MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 64, 128
 TILE = 64
 
 
-def ssd_scan(
-    x: torch.Tensor,  # [B, S, nh, hd] f32
-    dt: torch.Tensor,  # [B, S, nh] f32, post-softplus
-    A: torch.Tensor,  # [nh] f32, negative
-    Bm: torch.Tensor,  # [B, S, ds] f32
-    C: torch.Tensor,  # [B, S, ds] f32
-    chunk: int,
-) -> torch.Tensor:
-    """K6: the Mamba-2 chunked SSD scan on the card; any S (the last
-    chunk may be ragged), chunk <= 256, hd <= 64, ds <= 128.  Returns a
-    contiguous y [B, S, nh, hd] f32, without the D skip and the gate."""
+def _check(x, dt, A, Bm, C, chunk, dy=None):
+    """Raise on what the kernels do not take; returns (B, S, nh, hd,
+    ds).  ``dy``: the backward's gradient of y, of x's shape."""
     args = {"x": x, "dt": dt, "A": A, "Bm": Bm, "C": C}
+    if dy is not None:
+        args["dy"] = dy
     for name, t in args.items():
         if not t.is_cuda:
             raise ValueError(f"ssd scan kernel: {name} must be on CUDA")
@@ -59,6 +56,8 @@ def ssd_scan(
             f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm {tuple(Bm.shape)}, "
             f"C {tuple(C.shape)} do not match"
         )
+    if dy is not None and dy.shape != x.shape:
+        raise ValueError("ssd scan kernel: dy must have x's shape")
     if min(b, s, nh, hd, ds) < 1:
         raise ValueError("ssd scan kernel: empty dimension")
     if not 1 <= chunk <= MAX_CHUNK or hd > MAX_HEAD_DIM or ds > MAX_STATE:
@@ -67,6 +66,21 @@ def ssd_scan(
             f"takes chunk <= {MAX_CHUNK}, hd <= {MAX_HEAD_DIM}, "
             f"ds <= {MAX_STATE}"
         )
+    return b, s, nh, hd, ds
+
+
+def ssd_scan(
+    x: torch.Tensor,  # [B, S, nh, hd] f32
+    dt: torch.Tensor,  # [B, S, nh] f32, post-softplus
+    A: torch.Tensor,  # [nh] f32, negative
+    Bm: torch.Tensor,  # [B, S, ds] f32
+    C: torch.Tensor,  # [B, S, ds] f32
+    chunk: int,
+) -> torch.Tensor:
+    """K6: the Mamba-2 chunked SSD scan on the card; any S (the last
+    chunk may be ragged), chunk <= 256, hd <= 64, ds <= 128.  Returns a
+    contiguous y [B, S, nh, hd] f32, without the D skip and the gate."""
+    b, s, nh, hd, ds = _check(x, dt, A, Bm, C, chunk)
     nc = -(-s // chunk)
     empty = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((b, s, nh, hd), **empty)
@@ -99,3 +113,55 @@ def ssd_scan(
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_bwd(
+    x: torch.Tensor,  # [B, S, nh, hd] f32
+    dt: torch.Tensor,  # [B, S, nh] f32, post-softplus
+    A: torch.Tensor,  # [nh] f32, negative
+    Bm: torch.Tensor,  # [B, S, ds] f32
+    C: torch.Tensor,  # [B, S, ds] f32
+    dy: torch.Tensor,  # [B, S, nh, hd] f32: the gradient of K6's y
+    chunk: int,
+):
+    """K6's backward on the card: ``(dx, ddt, dA, dB, dC)`` of the scan
+    :func:`ssd_scan` computes from these inputs, under ``dy``, all f32
+    and contiguous, in the order of work of
+    :func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`.  Five kernels
+    (four for a scan of one chunk); the chunks' states are recomputed
+    from the inputs, not saved by the forward; deterministic (no
+    atomics).  The kernel's limits are the forward's."""
+    b, s, nh, hd, ds = _check(x, dt, A, Bm, C, chunk, dy=dy)
+    nc = -(-s // chunk)
+    empty = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((b, s, nh, hd), **empty)
+    ddt = torch.empty((b, s, nh), **empty)
+    dA = torch.empty((nh,), **empty)
+    dB = torch.empty((b, s, ds), **empty)
+    dC = torch.empty((b, s, ds), **empty)
+    # seg, total, H_in and dS per chunk (past one chunk), the per-head
+    # partials of dB and dC, the per-chunk ones of dA; 256-byte offsets
+    state = b * nh * nc * hd * ds if nc > 1 else 0
+    sizes = [b * nh * nc * chunk, b * nh * nc, state, state,
+             b * nc * nh * chunk * ds, b * nc * nh * chunk * ds, b * nc * nh]
+    sizes = [-(-n // 64) * 64 for n in sizes]
+    scratch = torch.empty(sum(sizes), **empty)
+    ptrs, base = [], scratch.data_ptr()
+    for n in sizes:
+        ptrs.append(base if n else None)
+        base += 4 * n
+    lib = _build.library("ssd_scan_bwd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.launch_ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), *ptrs, b, s, nh,
+            hd, ds, chunk, stream,
+        )
+    raise_on_launch_error(err, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+ssd_scan_bwd.launches = 0

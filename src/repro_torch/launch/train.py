@@ -3,8 +3,9 @@
 Runs the fault-tolerant Trainer on the selected architecture, with the
 flags of the JAX package's ``repro.launch.train``: the reduced (smoke)
 config by default, ``--full`` for the full one; runs on the card unless
-``--device cpu``.  Mamba-2 models (mamba2, zamba2) train on the CPU
-only: the Mamba-2 scan kernel has no backward yet (ROADMAP).
+``--device cpu``.  Every architecture trains on the card, the Mamba-2
+models (mamba2, zamba2) through the SSD scan kernel K6 and its
+hand-written backward.
 """
 
 import argparse

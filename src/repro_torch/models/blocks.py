@@ -448,16 +448,23 @@ def mamba_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     ``d_conv - 1`` positions of the bf16 projections (fewer when the
     sequence is shorter, as in the JAX package) and the f32 state
     [B, nh, hd, ds].  bf16 rounds where the JAX package's does: the
-    projections, the conv, ``y`` before the gate, the gate product."""
+    projections, the conv, ``y`` before the gate, the gate product; in
+    training the projections' cotangents too (``bf16_grad``)."""
     ssm = cfg.ssm
     b, s, d = x.shape
     di = ssm.d_inner(d)
     nh = ssm.n_heads(d)
-    z = torch.matmul(x, p["w_z"])
-    x_in = torch.matmul(x, p["w_x"])
-    B_in = torch.matmul(x, p["w_B"])
-    C_in = torch.matmul(x, p["w_C"])
-    dt_raw = torch.matmul(x, p["w_dt"])
+    # read at call time, as the JAX package's function-level import is,
+    # so that a swap of ``layers.bf16_grad`` reaches these five boundaries
+    from .layers import bf16_grad
+
+    # the cotangents reaching the projections round to bf16, as the JAX
+    # package's: the scan's internals run in f32
+    z = bf16_grad(torch.matmul(x, p["w_z"]))
+    x_in = bf16_grad(torch.matmul(x, p["w_x"]))
+    B_in = bf16_grad(torch.matmul(x, p["w_B"]))
+    C_in = bf16_grad(torch.matmul(x, p["w_C"]))
+    dt_raw = bf16_grad(torch.matmul(x, p["w_dt"]))
 
     xc = F.silu(_causal_conv(x_in, p["conv_x"], s).float())
     Bc = F.silu(_causal_conv(B_in, p["conv_B"], s).float())

@@ -34,7 +34,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd,
 )
 from repro_torch.kernels.grouped_matmul import grouped_matmul  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_scan, ssd_scan_bwd,
+)
 from repro_torch.models import init_model  # noqa: E402
 from repro_torch.models.transformer import _quantize_pool_int8  # noqa: E402
 from repro_torch.sched import MursConfig, MursPolicy  # noqa: E402
@@ -1013,19 +1015,101 @@ def test_grouped_matmul_backward_matches_plain(dev, dtype, e, c, d, f):
 
 
 def test_kernels_without_a_backward_raise_when_a_gradient_is_needed(dev):
-    """K6 (and the decode kernels) on a CUDA tensor that needs a
-    gradient raise, naming the ROADMAP item; under no_grad they run."""
-    x, dt, A, Bm, C = _ssd_inputs(dev, 1, 64, 2, 16, 8)
-    x.requires_grad_()
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        ops.ssd_scan(x, dt, A, Bm, C, 32)
-    with torch.no_grad():
-        assert ops.ssd_scan(x, dt, A, Bm, C, 32).shape == x.shape
+    """The decode kernels (K4 here) on a CUDA tensor that needs a
+    gradient raise; K6, which has its backward kernel now, runs under
+    autograd (``test_ssd_backward_matches_plain``)."""
     q = torch.randn(2, 4, 16, device=dev, requires_grad=True)
     kc = torch.randn(2, 2, 8, 16, device=dev)
     pos = torch.tensor([3, 5], dtype=torch.int32, device=dev)
     with pytest.raises(NotImplementedError, match="decode only"):
         ops.decode_attention(q, kc, kc, pos)
+    with torch.no_grad():
+        assert ops.decode_attention(q, kc, kc, pos).shape == q.shape
+
+
+#: (B, S, nh, hd, ds, chunk): K6's backward at one chunk (S 1, 64, 200),
+#: a ragged last chunk (600, 1000), whole chunks (512) at mamba2's widths
+#: (80 heads of 64, ds 128, Q 256), zamba2's (64 heads, ds 64) at 700,
+#: and narrow ones: hd 24 and ds 40 (both tiles zero-padded), a chunk
+#: of 100 (a ragged second tile in every chunk), ds 100
+SSD_BWD_SHAPES = [
+    (1, 1, 80, 64, 128, 256), (1, 64, 80, 64, 128, 256),
+    (2, 200, 80, 64, 128, 256), (1, 600, 80, 64, 128, 256),
+    (1, 512, 80, 64, 128, 256), (1, 1000, 80, 64, 128, 256),
+    (2, 700, 64, 64, 64, 256), (1, 45, 3, 16, 8, 32),
+    (2, 230, 5, 24, 40, 100), (1, 300, 3, 64, 100, 128),
+]
+#: K6's backward against autodiff of the plain scan, of max |plain|: the
+#: f32 terms summed in other orders; dx, dB and dC within 1e-4 (the CPU
+#: spread of the plain backward against autograd is at most 3e-7), ddt
+#: and dA within 1e-3: their terms, the reverse running sums of dseg,
+#: cancel (CPU: 1.6e-5 for dA, and f32 against f64 1.8e-4 at a chunk of
+#: 256)
+SSD_BWD_RTOL = {"dx": 1e-4, "ddt": 1e-3, "dA": 1e-3, "dB": 1e-4,
+                "dC": 1e-4}
+
+
+def _ssd_dy(dev, b, s, nh, hd, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(b, s, nh, hd, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("b,s,nh,hd,ds,chunk", SSD_BWD_SHAPES)
+def test_ssd_backward_matches_plain(dev, b, s, nh, hd, ds, chunk):
+    """``ops.ssd_scan`` with inputs that need a gradient: K6 once and its
+    backward once; y and the five gradients against autodiff of the plain
+    scan inside ``plain_on_card``."""
+    args = _ssd_inputs(dev, b, s, nh, hd, ds, seed=s + nh + 1)
+    dy = _ssd_dy(dev, b, s, nh, hd, seed=s)
+    ops.reset_launch_counts()
+    got = _grads(lambda *t: ops.ssd_scan(*t, chunk), dy, *args)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == 1 and ssd_scan_bwd.launches == 1
+    with ops.plain_on_card():
+        want = _grads(lambda *t: ops.ssd_scan(*t, chunk), dy, *args)
+    assert ssd_scan.launches == 1 and ssd_scan_bwd.launches == 1
+    atol = SSD_RTOL * want[0].abs().max().item()
+    torch.testing.assert_close(got[0], want[0], atol=atol, rtol=0)
+    for name, g, w in zip(SSD_BWD_RTOL, got[1:], want[1:]):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        atol = SSD_BWD_RTOL[name] * w.abs().max().item()
+        torch.testing.assert_close(g, w, atol=atol, rtol=0,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("s", [65, 600])
+def test_ssd_backward_is_deterministic(dev, s):
+    """Two launches of K6's backward give the same bits (one chunk and
+    three): no float atomics, every sum in one order."""
+    args = _ssd_inputs(dev, 2, s, 80, 64, 128, seed=s)
+    dy = _ssd_dy(dev, 2, s, 80, 64, seed=s + 1)
+    first = ssd_scan_bwd(*args, dy, 256)
+    second = ssd_scan_bwd(*args, dy, 256)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+def test_ssd_backward_wrapper_rejects_what_the_kernel_cannot_take(dev):
+    x, dt, A, Bm, C = _ssd_inputs(dev, 1, 40, 2, 16, 8)
+    dy = torch.zeros_like(x)
+    with pytest.raises(ValueError, match="dy"):
+        ssd_scan_bwd(x, dt, A, Bm, C, dy[:, :-1].contiguous(), 32)
+    with pytest.raises(TypeError):
+        ssd_scan_bwd(x, dt, A, Bm, C, dy.double(), 32)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan_bwd(x, dt, A, Bm, C, dy, 512)
+
+
+def test_ssd_without_a_gradient_launches_as_the_serving_path(dev):
+    """No input needs a gradient, or grad mode is off: K6 once and no
+    backward, as serving launches it."""
+    x, dt, A, Bm, C = _ssd_inputs(dev, 1, 300, 4, 64, 128)
+    ops.reset_launch_counts()
+    ops.ssd_scan(x, dt, A, Bm, C, 256)
+    with torch.no_grad():
+        ops.ssd_scan(x.requires_grad_(), dt, A, Bm, C, 256)
+    assert ssd_scan.launches == 2 and ssd_scan_bwd.launches == 0
 
 
 def _train_batch(cfg, dev, b=2, s=64):
@@ -1070,12 +1154,59 @@ def test_train_step_through_the_kernels_matches_plain(dev, name):
         assert ((g - w).norm() / w.norm()).item() <= 1e-2
 
 
-def test_mamba_train_step_on_the_card_raises(dev):
-    """K6 has no backward kernel: a Mamba-2 train step on the card stops
-    at the scan, naming the ROADMAP item."""
-    from repro_torch.train.train_step import value_and_grad
+#: a Mamba-2 smoke train step's leaves against the plain path's, per leaf
+#: of its norm: with ``bf16_grad`` the identity (the kernels differ from
+#: the plain versions only in the order of f32 sums) within 1e-3, since
+#: A_log's and dt_bias's gradients sum dA and ddt, whose terms cancel
+#: (chip_smoke.py's TRAIN_REF_EXACT_RTOL_SSM; its full-width zamba2 unit
+#: read 2.5e-4); with the bf16 cotangent rounding, where last-bit
+#: differences flip roundings that compound with depth, within 2e-2
+#: (chip_smoke.py's TRAIN_REF_F32_RTOL for zamba2; zamba2 smoke's 14
+#: layers read 1.07e-2 on the card, mamba2's 2 layers under 1e-2)
+SSM_TRAIN_RTOL = {"exact": 1e-3, "rounded": 2e-2}
 
-    cfg = ARCHS["mamba2-2.7b"].smoke()
-    params = init_model(cfg, 0, device=dev)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        value_and_grad(cfg, params, _train_batch(cfg, dev))
+
+@pytest.mark.parametrize("boundary", sorted(SSM_TRAIN_RTOL))
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_ssm_train_step_through_the_kernels_matches_plain(dev, name,
+                                                          boundary,
+                                                          monkeypatch):
+    """A Mamba-2 smoke model's loss and gradient (f32, remat on) through
+    the kernels: K6 forward twice per Mamba layer of the repeated unit
+    (the recompute) and once per suffix layer, its backward once per
+    Mamba layer, and zamba2's shared attention through K3 and its
+    backward; inside ``plain_on_card`` no launch.  Every leaf non-zero
+    and within SSM_TRAIN_RTOL[boundary] of the plain gradient."""
+    import repro_torch.models.layers as layers
+    import repro_torch.models.transformer as transformer
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    if boundary == "exact":
+        monkeypatch.setattr(transformer, "bf16_grad", lambda x: x)
+        monkeypatch.setattr(layers, "bf16_grad", lambda x: x)
+    cfg = ARCHS[name].smoke()
+    unit = list(cfg.block_pattern)
+    reps = cfg.resolved_pattern_repeats
+    n_unit = unit.count("mamba") * reps
+    n_suffix = list(cfg.suffix_blocks).count("mamba")
+    n_attn = (len(unit) - unit.count("mamba")) * reps
+    params = init_model(cfg, 0, dtype=torch.float32, device=dev)
+    batch = _train_batch(cfg, dev, s=300)
+    ops.reset_launch_counts()
+    loss, grads = value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize()
+    counts = (ssd_scan.launches, ssd_scan_bwd.launches,
+              flash_attention.launches, flash_attention_bwd.launches)
+    assert counts == (2 * n_unit + n_suffix, n_unit + n_suffix,
+                      2 * n_attn, n_attn)
+    with ops.plain_on_card():
+        p_loss, p_grads = value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize()
+    assert counts == (ssd_scan.launches, ssd_scan_bwd.launches,
+                      flash_attention.launches, flash_attention_bwd.launches)
+    assert abs(loss.item() - p_loss.item()) <= 1e-5
+    for g, w in zip(tree_leaves(grads), tree_leaves(p_grads)):
+        assert g.norm() > 0 and w.norm() > 0
+        err = ((g - w).norm() / w.norm()).item()
+        assert err <= SSM_TRAIN_RTOL[boundary]

@@ -1,5 +1,6 @@
 """The port's training stack against the JAX package on the CPU, at smoke
-size: the loss and every gradient leaf (internlm2, granite-moe, gemma3),
+size: the loss and every gradient leaf (internlm2, granite-moe, gemma3,
+mamba2, zamba2),
 one AdamW update and the schedule, a microbatched train step, the
 chunked-vocab loss, int8 error-feedback compression, the data pipeline's
 batches and the copied pressure controller.  Inputs are made with numpy
@@ -25,14 +26,22 @@ Tolerances, each stated beside its comparison:
   difference flips a rounding by one bf16 step (2^-8 relative); the
   flips compound with depth.  ``F32_GRAD_RTOL`` = 1e-2 of each leaf's
   norm ‖g − g_jax‖ / ‖g_jax‖ (measured on this CPU: 1.3e-6 internlm2 and
-  6.7e-7 granite-moe at 2 layers, 2.6e-3 gemma3 at 14); the loss within
-  1e-5.  With the rounding taken out of both packages, gemma3's 14
+  6.7e-7 granite-moe at 2 layers, 2.6e-3 gemma3 at 14, 1.6e-3 mamba2 at
+  2 and 7.6e-3 zamba2 at 14, at its Mamba blocks' ``dt_bias``); the loss
+  within 1e-5.  With the rounding taken out of both packages, gemma3's 14
   layers agree within ``F32_EXACT_GRAD_RTOL`` = 1e-4 (measured 2.6e-6):
   the port's arithmetic is the JAX package's.
 - bf16: weights, activations and gradients are bf16 on both sides,
   rounded from f32 sums taken in different orders (XLA's fusions round
   in other places than torch's eager ops).  ``BF16_GRAD_RTOL`` = 0.05 of
-  each leaf's norm (measured at most 0.016); the loss within 0.02.
+  each leaf's norm (measured at most 0.040, gemma3); the loss within
+  0.02.  zamba2's 14 layers (12 Mamba-2 blocks and the shared attention
+  twice) compound it further: 0.077, at its Mamba blocks' ``dt_bias``,
+  ``D`` and ``A_log``, where each package's own bf16 gradient differs
+  from its f32 one by 0.10 (JAX) and 0.11 (port); its limit
+  (``BF16_GRAD_RTOL_BY_ARCH``) is 0.15.  With the rounding taken out
+  (f32, ``bf16_grad`` the identity) zamba2 agrees within 2.6e-5 and
+  mamba2 within 1.3e-5.
 """
 
 import math
@@ -45,6 +54,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import repro.models.layers as jlayers  # noqa: E402
 import repro.models.transformer as jtransformer  # noqa: E402
 from repro import models as jm  # noqa: E402
 from repro.configs import ARCHS  # noqa: E402
@@ -67,10 +77,12 @@ F32_GRAD_RTOL = 1e-2
 F32_EXACT_GRAD_RTOL = 1e-4
 F32_LOSS_ATOL = 1e-5
 BF16_GRAD_RTOL = 0.05
+BF16_GRAD_RTOL_BY_ARCH = {"zamba2-1.2b": 0.15}
 BF16_LOSS_ATOL = 0.02
 B, S = 2, 24  # smoke batch; gemma3 smoke's window is shorter than S
 
-ARCH_NAMES = ["internlm2-1.8b", "granite-moe-3b-a800m", "gemma3-1b"]
+ARCH_NAMES = ["internlm2-1.8b", "granite-moe-3b-a800m", "gemma3-1b",
+              "mamba2-2.7b", "zamba2-1.2b"]
 
 
 @jax.custom_vjp
@@ -111,7 +123,10 @@ def _jax_value_and_grad(cfg, params, batch, f32):
     rounding bf16_grad rule (module docstring)."""
     mp = pytest.MonkeyPatch()
     if f32:
+        # the residual boundaries, and the Mamba-2 block's five, which it
+        # imports from ``layers`` at call time
         mp.setattr(jtransformer, "bf16_grad", _bf16_round_grad)
+        mp.setattr(jlayers, "bf16_grad", _bf16_round_grad)
     try:
         fn = jax.jit(jax.value_and_grad(
             lambda p, b: jstep.lm_loss(cfg, p, b)))
@@ -163,7 +178,8 @@ def test_loss_and_every_gradient_leaf_match_jax(grads_case):
     errs = _rel_errs(grads, j_grads)
     print(f"{name} {dtype}: loss {float(loss)} vs {j_loss}, worst leaf "
           f"{max(errs):.3g}")
-    assert max(errs) <= (F32_GRAD_RTOL if f32 else BF16_GRAD_RTOL), errs
+    assert max(errs) <= (F32_GRAD_RTOL if f32 else BF16_GRAD_RTOL_BY_ARCH.get(
+        name, BF16_GRAD_RTOL)), errs
     for g, p in zip(tree_leaves(grads), tree_leaves(tparams)):
         assert g.dtype == p.dtype  # the MoE router is f32 in a bf16 model
 
@@ -415,6 +431,36 @@ def test_pressure_controller_copy_keeps_the_history():
     assert {h["event"] for h in hist[1]} >= {"red-double", "cool-halve"}
 
 
+def _recompute_dispatch(monkeypatch, name):
+    """The dispatch (``ops.plain_active()`` at every ``ops`` call) of a
+    loss made inside ``plain_on_card``, then of its backward run on
+    another thread; returns (forward's, backward's, the smoke config)."""
+    import threading
+
+    from repro_torch.kernels import ops
+
+    seen = []
+    real = ops._on_cpu
+    monkeypatch.setattr(ops, "_on_cpu", lambda q: (
+        seen.append(ops.plain_active()), real(q))[1])
+    cfg = TARCHS[name].smoke()
+    params = params_from_numpy(_np(jm.init_model(
+        ARCHS[name].smoke(), jax.random.PRNGKey(2),
+        dtype=jnp.float32)), "cpu")
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    with ops.plain_on_card():
+        loss = tstep.lm_loss(cfg, params, _t_batch(_batch(cfg)))
+    forward = list(seen)
+    seen.clear()
+    worker = threading.Thread(target=lambda: torch.autograd.grad(loss,
+                                                                 leaves))
+    worker.start()
+    worker.join()
+    return forward, seen, cfg
+
+
 def test_recompute_takes_the_forward_dispatch_on_another_thread(
         monkeypatch):
     """A checkpointed unit's recompute runs where autograd runs it — on
@@ -424,27 +470,17 @@ def test_recompute_takes_the_forward_dispatch_on_another_thread(
     call through the plain dispatch (without the repair the recompute
     took the kernels' path there and the checkpoint's saved tensors
     differed)."""
-    import threading
+    forward, backward, cfg = _recompute_dispatch(monkeypatch,
+                                                 "internlm2-1.8b")
+    assert forward and all(forward)
+    assert len(backward) == cfg.n_layers and all(backward)
 
-    from repro_torch.kernels import ops
 
-    seen = []
-    real = ops._on_cpu
-    monkeypatch.setattr(ops, "_on_cpu", lambda q: (
-        seen.append(ops.plain_active()), real(q))[1])
-    cfg = TARCHS["internlm2-1.8b"].smoke()
-    params = params_from_numpy(_np(jm.init_model(
-        ARCHS["internlm2-1.8b"].smoke(), jax.random.PRNGKey(2),
-        dtype=jnp.float32)), "cpu")
-    leaves = tree_leaves(params)
-    for t in leaves:
-        t.requires_grad_(True)
-    with ops.plain_on_card():
-        loss = tstep.lm_loss(cfg, params, _t_batch(_batch(cfg)))
-    assert seen and all(seen)
-    seen.clear()
-    worker = threading.Thread(target=lambda: torch.autograd.grad(loss,
-                                                                 leaves))
-    worker.start()
-    worker.join()
-    assert len(seen) == cfg.n_layers and all(seen)
+def test_mamba_recompute_takes_the_forward_dispatch_on_another_thread(
+        monkeypatch):
+    """The same for mamba2: every recomputed SSD scan takes the plain
+    dispatch on autograd's thread, so a scan whose forward ran plain
+    never reaches K6's autograd Function in the recompute."""
+    forward, backward, cfg = _recompute_dispatch(monkeypatch, "mamba2-2.7b")
+    assert len(forward) == cfg.n_layers and all(forward)
+    assert len(backward) == cfg.n_layers and all(backward)
