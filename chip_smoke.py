@@ -129,8 +129,9 @@ Phases, each printing one JSON line (or one per kernel or run):
    their K3/K4 launch counts.
 15. training — ``train-kernel``: K3's backward (``flash_attention_bwd``,
    after K3's forward saving its log-sum-exp) against autodiff of the
-   plain version in f32 and bf16 at internlm2's (B 4, S 2,048), gemma3's
-   local, whisper's encoder and MLA's shapes, and K5's two backward
+   plain version in f32 and bf16 at internlm2's (B 4 and the training
+   microbatch B 2, S 2,048), gemma3's local, whisper's encoder and MLA's
+   shapes, a second launch bit-equal, and K5's two backward
    products (dX = dY W^T, dW = X^T dY) at granite-moe's training
    capacity, timed against their bounds, the plain versions and SDPA's
    backward (with the mask and with its causal flag) or ``torch.bmm``;
@@ -157,7 +158,9 @@ Phases, each printing one JSON line (or one per kernel or run):
    ``ops.plain_on_card`` (internlm2, granite and mamba2 at 2 layers,
    gemma3's 6-layer unit, zamba2's unit of 5 Mamba-2 blocks and the
    shared attention, whisper-base whole; f32 and bf16), with K6's
-   backward launched for the Mamba-2 models.
+   backward launched for the Mamba-2 models; ``train-kernel-split``:
+   the device kernels of one call of K3's and of K6's backward at their
+   kernels-line cases, with each one's device time.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1.  Without a
@@ -409,11 +412,12 @@ SIM_EXPECTED = {
 TRAIN_F32_ATOL = 1e-4
 BWD_BF16_ULPS = 2
 #: (name, B, H, KV, S, hd, vd, causal, window): K3's backward at the
-#: training paths' shapes — internlm2's (the train-internlm2 phase's
-#: microbatch of 2 is half this batch), gemma3's local layer, whisper's
-#: encoder, deepseek-v2's MLA (V 128 padded to q/k's 192)
+#: training paths' shapes — internlm2's at B 4 and at the train-internlm2
+#: phase's microbatch of 2, gemma3's local layer, whisper's encoder,
+#: deepseek-v2's MLA (V 128 padded to q/k's 192)
 TRAIN_FLASH_CASES = [
     ("internlm2", 4, 16, 8, 2048, 128, 128, True, 0),
+    ("internlm2_b2", 2, 16, 8, 2048, 128, 128, True, 0),
     ("gemma3_local", 2, 4, 1, 2048, 256, 256, True, 512),
     ("whisper_encoder", 2, 8, 8, 1500, 64, 64, False, 0),
     ("mla", 2, 128, 128, 160, 192, 128, True, 0),
@@ -430,6 +434,24 @@ SSD_BWD_RTOL = {"dx": 1e-4, "ddt": 1e-3, "dA": 1e-3, "dB": 1e-4,
                 "dC": 1e-4}
 #: the K6 backward case in the kernels line: mamba2's training microbatch
 SSD_BWD_LINE_CASE = "mamba2"
+#: the previous designs' times (ms) of the two backward kernels at these
+#: cases — K3's on mma.sync at every width, K6's on the CUDA cores with
+#: per-head partials (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00
+#: W) — printed beside each row's own time; None where that design was
+#: not timed at the shape
+PARENT_BWD_MS = {
+    "flash_attention_bwd": {"internlm2": 1.401, "internlm2_b2": None,
+                            "gemma3_local": 0.446, "whisper_encoder": 0.285,
+                            "mla": 0.237},
+    "ssd_scan_bwd": {"mamba2": 6.499, "zamba2": 3.267,
+                     "mamba2_ragged": 1.734, "mamba2_one_chunk": 0.587},
+}
+#: K6's backward runs its tile products as 3xTF32 on the tensor cores:
+#: its second bound takes the operations at dense TF32's 495 TFLOP/s
+#: (NVIDIA's data sheet) over the three TF32 products each f32 product
+#: costs
+TF32_PEAK_FLOPS = 495e12
+TF32_PASSES = 3
 #: train-mamba2: mamba2-2.7b at full width and depth (64 layers: weights,
 #: gradients and AdamW moments about 16 bytes a parameter, 45 GB), the
 #: train-internlm2 phase's batch, 3 steps of TRAIN_MICRO microbatches, no
@@ -2723,6 +2745,20 @@ def zoo_phases(torch, ARCHS, init_model, ops, calls, ref, gmm_checked):
 
 
 # ---------------------------------------------------------------- training
+def flash_bwd_work(b, h, kv, s, hd, vd, causal, window):
+    """(bytes, operations, kept pairs, rows without a key) K3's backward
+    needs in bf16 at self-attention over ``s`` positions: q, o, dO, k and
+    v read and dq, dk and dv written once, the LSE read; five products a
+    kept pair — S and dP recomputed once, dV, dK, dQ — 2 (3 hd + 2 vd)
+    operations (the kernels execute seven: the dQ kernel recomputes S and
+    dP)."""
+    pairs, empty = kept_pairs(s, s, causal, window, 0)
+    n_bytes = (2 * (b * h * s * (2 * hd + 2 * vd)
+                    + 2 * b * kv * s * (hd + vd)) + 4 * b * h * s)
+    flops = 2 * (3 * hd + 2 * vd) * b * h * pairs
+    return n_bytes, flops, pairs, empty
+
+
 def train_kernel_phase(torch, F, ref, timer, granite_cfg):
     """K3's backward and K5's two backward products against autodiff of
     their plain versions: K3 at TRAIN_FLASH_CASES in f32 and bf16, timed in
@@ -2732,7 +2768,7 @@ def train_kernel_phase(torch, F, ref, timer, granite_cfg):
     Returns the kernels-line entry of K3's backward: its internlm2 case,
     with the largest bf16 error of every case."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd,
+        bwd_route, flash_attention, flash_attention_bwd,
     )
     from repro_torch.kernels.grouped_matmul import grouped_matmul
     from repro_torch.models.blocks import _capacity
@@ -2764,6 +2800,11 @@ def train_kernel_phase(torch, F, ref, timer, granite_cfg):
             dp = F.pad(dout, (0, hd - vd)) if vd < hd else dout
             out, lse = flash_attention(q, k, vp, return_lse=True, **kw)
             got = flash_attention_bwd(q, k, vp, out, dp, lse, **kw)
+            again = flash_attention_bwd(q, k, vp, out, dp, lse, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+                  f"flash_attention_bwd {name} {dtype}: two launches differ")
+            del again
             got = (got[0], got[1], got[2][..., :vd])
             pout, leaves, want = plain_grads(
                 lambda *t: ref.flash_attention_ref(*t, **kw), dout, q, k, v)
@@ -2786,12 +2827,8 @@ def train_kernel_phase(torch, F, ref, timer, granite_cfg):
                 continue
             worst = max([worst] + [e["max_abs_err"]
                                    for e in errs[key].values()])
-            pairs, empty = kept_pairs(s, s, causal, window, 0)
-            # q, o, dO, k, v read and dq, dk, dv written once, the LSE read
-            n_bytes = (2 * (b * h * s * (2 * hd + 2 * vd)
-                            + 2 * b * kv * s * (hd + vd)) + 4 * b * h * s)
-            # S and dP recomputed, dV, dQ, dK: 2 (3 hd + 2 vd) a kept pair
-            flops = 2 * (3 * hd + 2 * vd) * b * h * pairs
+            n_bytes, flops, pairs, empty = flash_bwd_work(
+                b, h, kv, s, hd, vd, causal, window)
             bound_ms, bound_by = bound(n_bytes, flops, dtype, torch)
             kr = ref.repeat_kv(k, h // kv).detach().clone().requires_grad_()
             vr = ref.repeat_kv(v, h // kv).detach().clone().requires_grad_()
@@ -2812,10 +2849,15 @@ def train_kernel_phase(torch, F, ref, timer, granite_cfg):
                 "shape": {"B": b, "H": h, "KV": kv, "S": s, "hd": hd,
                           "vd": vd, "causal": causal, "window": window},
                 "kept_pairs": pairs, "rows_without_key": empty,
-                "errors": errs, "max_abs_err": max(
+                "errors": errs, "deterministic": True,
+                "max_abs_err": max(
                     e["max_abs_err"] for e in errs[key].values()),
+                "route": bwd_route(dtype, hd),
                 "ms": time_ms(torch, lambda: flash_attention_bwd(
                     q, k, vp, out, dp, lse, **kw), timer),
+                "parent_ms": PARENT_BWD_MS["flash_attention_bwd"][name],
+                "host_ms": host_ms(torch, lambda: flash_attention_bwd(
+                    q, k, vp, out, dp, lse, **kw)),
                 "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
                     pout, leaves, dout, retain_graph=True), timer),
                 "library_masked_ms": time_ms(
@@ -2901,6 +2943,12 @@ def train_ssd_cases(m_cfg, z_cfg):
             ("mamba2_one_chunk", micro, 200, *ssd_dims(m_cfg))]
 
 
+def tf32_bound_ms(flops):
+    """The least time (ms) for ``flops`` f32 operations run as 3xTF32
+    tensor-core products (TF32_PASSES TF32 operations each)."""
+    return 1e3 * flops * TF32_PASSES / TF32_PEAK_FLOPS
+
+
 def ssd_bwd_work(b, s, nh, hd, ds, chunk):
     """(bytes, operations) K6's backward needs: x, dy, dt, A, B and C read
     and dx, ddt, dA, dB and dC written once, in f32; per chunk the
@@ -2965,12 +3013,14 @@ def ssd_bwd_kernel_phase(torch, ref, timer, cases):
             "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
             "ms": time_ms(torch, lambda: ssd_scan_bwd(*args, dy, chunk),
                           timer),
+            "parent_ms": PARENT_BWD_MS["ssd_scan_bwd"][name],
             "plain_ms": time_ms(torch, lambda: torch.autograd.grad(
                 y, leaves, dy, retain_graph=True), timer),
             "library_ms": None,
             "host_ms": host_ms(torch, lambda: ssd_scan_bwd(*args, dy,
                                                            chunk)),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_3xtf32_ms": tf32_bound_ms(flops),
             "bytes": n_bytes, "flops": flops,
         }
         r["late_windows"] = timer.late - late
@@ -2979,6 +3029,45 @@ def ssd_bwd_kernel_phase(torch, ref, timer, cases):
         del args, dy, got, again, leaves, y, want
         torch.cuda.empty_cache()
     return {**results[SSD_BWD_LINE_CASE], "max_abs_err": worst}
+
+
+def bwd_split_phase(torch, ARCHS):
+    """Where one call of each redesigned backward spends its time: the
+    device kernels ``torch.profiler`` sees (warm L2) for K3's backward at
+    its kernels-line case (internlm2, B 4, bf16) and K6's at mamba2's
+    training microbatch, each kernel's device time a call (us).  Run
+    after every timed phase: the profiler leaves later host launches
+    slower."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd,
+    )
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 22)
+    name, b, h, kv, s, hd, _, causal, window = TRAIN_FLASH_CASES[0]
+    kw = dict(causal=causal, window=window)
+    q, dout = (torch.randn(b, h, s, hd, generator=gen,
+                           device=DEV).bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, kv, s, hd, generator=gen, device=DEV).bfloat16()
+            for _ in range(2))
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    launched, us = device_kernels(
+        torch, lambda: flash_attention_bwd(q, k, v, out, dout, lse, **kw))
+    emit({"phase": "train-kernel-split", "name": "flash_attention_bwd",
+          "case": name, "device_kernels": launched,
+          "device_kernel_us": us})
+    del q, k, v, dout, out, lse
+    name, b, s, nh, hd, ds, chunk = train_ssd_cases(
+        ARCHS["mamba2-2.7b"], ARCHS["zamba2-1.2b"])[0]
+    args = ssd_inputs(torch, gen, b, s, nh, hd, ds)
+    dy = torch.randn(b, s, nh, hd, generator=gen, device=DEV)
+    launched, us = device_kernels(
+        torch, lambda: ssd_scan_bwd(*args, dy, chunk))
+    emit({"phase": "train-kernel-split", "name": "ssd_scan_bwd",
+          "case": name, "device_kernels": launched,
+          "device_kernel_us": us})
+    del args, dy
+    torch.cuda.empty_cache()
 
 
 def checkpoint_meta(path):
@@ -3331,6 +3420,7 @@ def train_phases(torch, F, ARCHS, init_model, ops, ref, smi, gmm_checked):
     runs.append(train_granite(torch, ARCHS, ops, ref, smi, gmm_checked))
     runs.append(train_mamba2(torch, ARCHS, ops, smi))
     train_reference(torch, ARCHS, init_model, ops)
+    bwd_split_phase(torch, ARCHS)
     return kernels, runs
 
 

@@ -48,7 +48,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "flash_attention_bwd": {
         "launch_flash_attention_bwd": [*[_P] * 10, *[_I] * 6, *[_L] * 24,
-                                       _I, _I, _I, _F, _I, _P],
+                                       _I, _I, _I, _F, _I, _I, _P],
     },
     "decode_attention": {
         "launch_decode_attention": [_P, _P, _P, _P, _P, _P,
@@ -63,7 +63,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                             _I, _I, _I, _I, _I, _I, _P],
     },
     "ssd_scan_bwd": {
-        "launch_ssd_scan_bwd": [*[_P] * 18, *[_I] * 6, _P],
+        "launch_ssd_scan_bwd": [*[_P] * 21, *[_I] * 6, _P],
     },
 }
 #: the kernels' dtype codes (the ``dtype`` argument of every launch)

@@ -35,47 +35,104 @@
 // gradients rounded once to the inputs' dtype.  f32 inputs stay on the
 // CUDA cores in f32 throughout.
 //
-// Design (bf16, mma.sync m16n8k16 with f32 accumulators, the helpers of
-// mma.cuh).  A warp owns 16 rows (dq: query rows; dkdv: keys) and, at hd
-// 256, half the columns of the gradient it accumulates (CS = 2 warps a
-// row block, each computing the full S and dP of its rows), which keeps
-// a thread's f32 accumulators at 64 + 64 (dkdv) or 64 (dq) registers.
-//   - dkdv: K and V of the block's 64 keys stay in shared memory; query
-//     tiles of 32 rows of (Q, dO, LSE, D) stream through a 2-stage
-//     cp.async ring over the flattened (q head, tile) sequence.
-//     S^T = K Q^T and dP^T = V dO^T (keys as the A operand); P^T and dS^T
-//     feed dV and dK from registers (their C fragments are A fragments).
-//   - dq: Q and dO of 64 rows in shared memory; K/V tiles of 64 keys (32
-//     at hd 256) through a 2-stage ring; S = Q K^T, dP = dO V^T; dS feeds
-//     dQ += dS K, K through ldmatrix.trans.
-//   - Tiles that no row masks skip the mask.  Results are staged through
-//     shared memory for 16-byte stores.
-// Bound: 5 products of 2 Sq Sk hd operations per (batch, q head) (S twice,
-// dP twice, dV, dK, dQ: 7 with the recomputed S and dP, 5 counted), halved
-// by a causal mask: compute-bound at the training shapes.  mma.sync
-// reaches part of the tensor cores' rate; wgmma fed by TMA is later work.
+// Bound: 5 products of 2 Sq Sk hd operations per (batch, q head) (S, dP,
+// dV, dK, dQ), halved by a causal mask: compute-bound at the training
+// shapes (internlm2, B 4 x S 2,048, hd 128: 172 GFLOP, 0.174 ms at bf16's
+// 989 TFLOP/s).  The split below executes seven (the dQ kernel recomputes
+// S and dP: 241 GFLOP there) and needs no atomics.
 //
-// f32 (the train-reference check's f32 runs): the same passes on the CUDA
-// cores, 8 warps a CTA, blocks of 32 keys and 32 queries staged in shared
-// memory as f32 (rows padded by 4 floats); a lane scores one (row, key)
-// pair per warp row, the gradient sums run over float4 columns per lane.
+// Routes (the wrapper's bwd_route names one; each launches D, then dK/dV,
+// then dQ):
+//   wgmma (bf16 at hd 64 and 128; internlm2, granite-moe, whisper,
+//     stablelm, zamba2's shared block).  FlashAttention-3's products on
+//     Hopper's warpgroup MMA, with FlashAttention-2's deterministic split
+//     kept.  A CTA is two consumer warpgroups of 64 rows each and a
+//     producer warpgroup whose thread 0 issues every TMA copy and whose
+//     registers go to the consumers (setmaxnreg: 24 and 240 a thread,
+//     FlashAttention-3's split; the launch gives 168) (4-D tensor maps
+//     over the [B, heads, S, hd] strides, 128-byte swizzle, rows past S
+//     read as zeros) into a 3-stage ring with full/empty mbarriers; no
+//     CTA-wide barrier in the loop.
+//     - dkdv_wgmma_kernel, one CTA per (128 keys, kv head, batch): K and
+//       V stay in shared memory; (Q, dO, LSE, D) tiles of 64 queries of
+//       the group's q heads stream through the ring.  S^T = K Q^T and dP^T
+//       = V dO^T are m64n64k16 products with both operands in shared
+//       memory (keys as M); P^T and dS^T, rounded to bf16 in the
+//       accumulator layout, are register A operands of dV += P^T dO and
+//       dK += dS^T Q (m64n{hd}k16, dO and Q read MN-major through the
+//       same swizzled tiles).  S^T and dP^T are two commit groups, so the
+//       exponentials run while dP^T is in flight, and dV is issued as
+//       soon as P is packed, so that dS's work runs under it.  (Keeping
+//       a tile's dV and dK in flight over the next tile's S^T and dP^T
+//       needs more registers than ptxas gives a consumer thread at hd
+//       128, which then serializes every wgmma.)
+//     - dq_wgmma_kernel, one CTA per (128 query rows, q head, batch): Q
+//       and dO stay; (K, V) tiles of 64 keys stream.  S = Q K^T, dP = dO
+//       V^T, and dQ += dS K with K read MN-major through a descriptor, no
+//       transposed copy.  Three warpgroups a CTA: dQ needs half dK and
+//       dV's registers, and more warpgroups cover more of each other's
+//       exponentials.
+//     Load balance: the block index is the slowest grid dimension and the
+//     heaviest causal blocks launch first (key block 0 for dK/dV, the
+//     last query block for dQ), so the light blocks fill the tail; at
+//     train-internlm2's microbatch (B 2) the grids are 256 (dK/dV: 384
+//     threads, 164 KB of shared memory at hd 128) and 352 CTAs (dQ: 512
+//     threads, 193 KB), one a SM.  A warpgroup
+//     whose keys (or rows) no row of a tile sees skips the tile's
+//     products.  Each warpgroup stages its gradient rows, row-swizzled,
+//     in its own K (or Q) tile and stores them 16 bytes a thread.
+//   mma (bf16 at every other hd: MLA's 192, gemma3's 256, the narrow
+//     smoke widths), the first design's kernels: mma.sync m16n8k16 with f32
+//     accumulators (mma.cuh).  A warp owns 16 rows (dq: query rows;
+//     dkdv: keys) and, at hd 256, half the columns of the gradient it
+//     accumulates (two warps a row block): a 64-key warpgroup holding dK
+//     and dV at hd 256 would need about 256 f32 registers a thread.  dkdv
+//     keeps K and V of 64 keys in shared memory and streams query tiles
+//     of 32 rows through a 2-stage cp.async ring; dq keeps Q and dO of 64
+//     rows and streams K/V tiles of 64 keys (32 at hd 256); K through
+//     ldmatrix.trans.
+//   f32 (the train-reference check's f32 runs): the same passes on the
+//     CUDA cores, 8 warps a CTA, blocks of 32 keys and 32 queries staged
+//     in shared memory as f32 (rows padded by 4 floats); a lane scores
+//     one (row, key) pair per warp row, the gradient sums run over float4
+//     columns per lane.
 
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
 
+using repro_torch::bulk_load;
 using repro_torch::cp_async16;
 using repro_torch::cp_async_commit;
 using repro_torch::cp_async_wait_group;
+using repro_torch::fence_regs;
 using repro_torch::ldmatrix_x4;
 using repro_torch::ldmatrix_x4_trans;
 using repro_torch::load8;
+using repro_torch::mbar_arrive;
+using repro_torch::mbar_expect_tx;
+using repro_torch::mbar_init;
+using repro_torch::mbar_init_fence;
+using repro_torch::mbar_wait;
 using repro_torch::mma_bf16;
+using repro_torch::named_barrier;
 using repro_torch::pack_bf16_rn;
+using repro_torch::setmaxnreg_dec;
+using repro_torch::setmaxnreg_inc;
+using repro_torch::smem_desc;
+using repro_torch::smem_u32;
 using repro_torch::Strides;
+using repro_torch::tma_load4;
+using repro_torch::wgmma_commit;
+using repro_torch::wgmma_fence;
+using repro_torch::wgmma_rs_m64n128k16;
+using repro_torch::wgmma_rs_m64n64k16;
+using repro_torch::wgmma_ss_m64n64k16;
+using repro_torch::wgmma_wait;
 
 using bf16 = __nv_bfloat16;
 
@@ -113,35 +170,48 @@ struct Mask {
 };
 
 // --------------------------------------------------------------------- D
-// D[b, h, i] = sum_c dO[b, h, i, c] O[b, h, i, c]: one warp a row
+// D = sum_c dO[., c] O[., c] for row i of (batch, head) bh at delta[bh *
+// pitch + i]; with ``lse2`` (the wgmma route) also LSE log2(e) at
+// lse2[bh * pitch + i], and rows Sq <= i < pitch (the padding of a 64-row
+// tile) zero in both.  A row is LPR lanes of 8 elements each (LPR the
+// power of two that covers hd / 8), so that a warp takes 32 / LPR rows.
 template <typename T>
 __global__ void __launch_bounds__(256)
 delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-             float* __restrict__ delta, int H, int Sq, int hd, Strides os,
-             Strides ds, long long rows) {
-  const long long row = static_cast<long long>(blockIdx.x) * 8 +
-                        (threadIdx.x >> 5);
+             const float* __restrict__ lse, float* __restrict__ delta,
+             float* __restrict__ lse2, int H, int Sq, int pitch, int hd,
+             int lpr, Strides os, Strides ds, long long rows) {
   const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int i = static_cast<int>(row % Sq);
-  const long long bh = row / Sq;
-  const int h = static_cast<int>(bh % H);
-  const int b = static_cast<int>(bh / H);
-  const T* orow = o + b * os.b + h * os.h + i * os.s;
-  const T* drow = dout + b * ds.b + h * ds.h + i * ds.s;
+  const long long row = (static_cast<long long>(blockIdx.x) * 8 +
+                         (threadIdx.x >> 5)) * (32 / lpr) + lane / lpr;
+  const int sub = lane % lpr;
   float sum = 0.f;
-  for (int c = lane * 8; c < hd; c += 256) {
-    float x[8], y[8];
-    load8(orow + c, x);
-    load8(drow + c, y);
+  const bool in_row = row < rows && static_cast<int>(row % pitch) < Sq;
+  if (in_row) {
+    const int i = static_cast<int>(row % pitch);
+    const long long bh = row / pitch;
+    const int h = static_cast<int>(bh % H);
+    const int b = static_cast<int>(bh / H);
+    const T* orow = o + b * os.b + h * os.h + i * os.s;
+    const T* drow = dout + b * ds.b + h * ds.h + i * ds.s;
+    for (int c = sub * 8; c < hd; c += 8 * lpr) {
+      float x[8], y[8];
+      load8(orow + c, x);
+      load8(drow + c, y);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) sum = fmaf(x[e], y[e], sum);
+      for (int e = 0; e < 8; ++e) sum = fmaf(x[e], y[e], sum);
+    }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = lpr / 2; off > 0; off >>= 1) {
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
   }
-  if (lane == 0) delta[row] = sum;
+  if (sub == 0 && row < rows) {
+    const int i = static_cast<int>(row % pitch);
+    delta[row] = in_row ? sum : 0.f;
+    if (lse2 != nullptr) {
+      lse2[row] = in_row ? lse[row / pitch * Sq + i] * kLog2e : 0.f;
+    }
+  }
 }
 
 // ------------------------------------------------------------ bf16 MMA
@@ -575,6 +645,22 @@ struct Args {
   cudaStream_t stream;
 };
 
+// D (and, with ``lse2``, LSE log2(e)) at a row pitch of ``pitch``
+template <typename T>
+int launch_delta(const Args& a, float* delta, float* lse2, int pitch) {
+  int lpr = 1;
+  while (lpr * 8 < a.hd) lpr *= 2;
+  const long long rows = static_cast<long long>(a.B) * a.H * pitch;
+  const long long per_block = 8LL * (32 / lpr);
+  const long long blocks = (rows + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  delta_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, a.stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), delta, lse2, a.H, a.Sq, pitch,
+      a.hd, lpr, a.os, a.dos, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HDP>
 int launch_mma(const Args& a) {
   constexpr int threads = 128 * col_split(HDP);
@@ -606,12 +692,596 @@ int launch_mma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_bf16(const Args& a) {
+// the mma.sync route: D, then the two kernels at the hd template that
+// covers a.hd
+int launch_mma_route(const Args& a) {
+  int err = launch_delta<bf16>(a, static_cast<float*>(a.delta), nullptr,
+                               a.Sq);
+  if (err != 0) return err;
   if (a.hd <= 16) return launch_mma<16>(a);
   if (a.hd <= 32) return launch_mma<32>(a);
   if (a.hd <= 64) return launch_mma<64>(a);
   if (a.hd <= 128) return launch_mma<128>(a);
   return launch_mma<256>(a);
+}
+
+// ----------------------------------------------------------- bf16 wgmma
+// The route at hd 64 and 128 (see the note at the top).  A CTA is kKvWgs
+// (dkdv) or kQWgs (dq) consumer warpgroups, each owning 64 rows (keys or
+// query rows),
+// and a producer warpgroup whose thread 0 issues every TMA copy and which
+// hands its registers to the consumers (setmaxnreg).  Tiles of 64
+// rows x hd are hd / 64 TMA boxes of [64 rows][64] (8 KB each, 128-byte
+// swizzle); the same box is read K-major (S-type products, the reduced
+// dimension is hd) and MN-major (gradient products, the reduced dimension
+// is the tile's rows).
+constexpr int kKvWgs = 2;  // dkdv: 64 keys each (dK and dV: 128 registers)
+constexpr int kQWgs = 3;   // dq: 64 query rows each (dQ: 64 registers)
+constexpr int kKvThreads = 128 * (kKvWgs + 1);
+constexpr int kQThreads = 128 * (kQWgs + 1);
+// registers a thread keeps after setmaxnreg: the launch gives each thread
+// 65536 / threads; the producer keeps 24 and the consumers share the rest,
+// rounded down to 8 (240 at most): 240 for dkdv's two warpgroups, 160 for
+// dq's three
+constexpr int kProducerRegs = 24;
+constexpr int kKvRegs = 240;
+constexpr int kQRegs = 160;
+static_assert(128 * kProducerRegs + 128 * kKvWgs * kKvRegs <= 65536 &&
+                  128 * kProducerRegs + 128 * kQWgs * kQRegs <= 65536,
+              "the register file is 65536 registers");
+
+// 2^x by the SFU (ex2.approx, about 2 ulps; -inf gives 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr int kWgStages = 3;
+constexpr int kBox = 8192;
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// k16 step kk of a 64-row tile read K-major (reduced over its hd)
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile,
+                                           int kk) {
+  return smem_desc(tile + (kk >> 2) * kBox + (kk & 3) * 32, 16, 1024);
+}
+
+// k16 step kk of a 64-row tile read MN-major (reduced over its rows 16 kk
+// .. 16 kk + 15, its hd columns the product's N)
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile,
+                                            int kk) {
+  return smem_desc(tile + kk * 2048, kBox, 1024);
+}
+
+// acc (64 x HD) += A (64 x 16, registers) . tile's 16 rows (MN-major)
+template <int HD>
+__device__ __forceinline__ void product_rs(float (&acc)[HD / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (HD == 128) {
+    wgmma_rs_m64n128k16<1>(acc, a, db, 1);
+  } else {
+    wgmma_rs_m64n64k16<1>(acc, a, db, 1);
+  }
+}
+
+// a 64 x 64 accumulator, rounded to bf16, as the A operands of four k16
+// steps
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4],
+                                     const float (&x)[32]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      a[k][e] = pack_bf16_rn(x[8 * k + 2 * e], x[8 * k + 2 * e + 1]);
+    }
+  }
+}
+
+// the warpgroup's 64 x HD accumulator times ``mul``, rounded to bf16, into
+// ``tile`` row-major with each row's 16-byte pieces swizzled by the row
+// (piece c at c ^ (r % 8)), so that neither these writes nor the row reads
+// of store_tile collide on banks
+template <int HD>
+__device__ __forceinline__ void stage_tile(unsigned char* tile,
+                                           const float (&acc)[HD / 2],
+                                           float mul, int warp, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + g + 8 * h;
+      const int off = r * HD * 2 + ((j ^ (r & 7)) << 4) + t4 * 4;
+      *reinterpret_cast<uint32_t*>(tile + off) = pack_bf16_rn(
+          acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+    }
+  }
+}
+
+// rows [0, n) of a staged tile to global, 16 bytes a copy, by the
+// warpgroup's 128 threads
+template <int HD>
+__device__ __forceinline__ void store_tile(bf16* dst, long long stride,
+                                           const unsigned char* tile, int n,
+                                           int wt) {
+  constexpr int CH = HD / 8;
+  for (int i = wt; i < n * CH; i += 128) {
+    const int r = i / CH, c = i % CH;
+    *reinterpret_cast<uint4*>(dst + r * stride + c * 8) =
+        *reinterpret_cast<const uint4*>(tile + r * HD * 2 +
+                                        ((c ^ (r & 7)) << 4));
+  }
+}
+
+template <int HD>
+__host__ __device__ constexpr int wg_tile() { return HD / 64 * kBox; }
+template <int HD>
+constexpr int dkdv_wg_smem() {
+  return 1024 + 2 * kKvWgs * wg_tile<HD>() +
+         kWgStages * (2 * wg_tile<HD>() + 1024);
+}
+template <int HD>
+constexpr int dq_wg_smem() {
+  return 1024 + 2 * kQWgs * wg_tile<HD>() + kWgStages * 2 * wg_tile<HD>();
+}
+
+// One CTA per (block of 64 kKvWgs keys, kv head, batch), block index
+// slowest, so that under a causal mask the blocks that see the most query
+// tiles start first.  stats: LSE log2(e) [B H][SqP], then D [B H][SqP].
+template <int HD>
+__global__ void __launch_bounds__(kKvThreads, 1)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                  const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv,
+                  const __grid_constant__ CUtensorMap mdo,
+                  const float* __restrict__ stats, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int H, int KV, int B, int Sq,
+                  int Sk, int SqP, Strides dks, Strides dvs, Mask mask,
+                  float scale) {
+  constexpr int TILE = wg_tile<HD>();
+  constexpr int NB = HD / 64;
+  constexpr int KS = HD / 16;
+  constexpr int STAGE = 2 * TILE + 1024;  // Q, dO, then LSE2 and D
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kWgStages];
+  __shared__ __align__(8) uint64_t empty[kWgStages];
+  __shared__ __align__(8) uint64_t kv_full;
+  unsigned char* sK = align1024(smem_raw);
+  unsigned char* sV = sK + kKvWgs * TILE;
+  unsigned char* ring = sV + kKvWgs * TILE;
+
+  const int k0 = static_cast<int>(blockIdx.x / (KV * B)) * 64 * kKvWgs;
+  const int kvh = blockIdx.x % KV;
+  const int b = (blockIdx.x / KV) % B;
+  const int G = H / KV;
+  const int tid = threadIdx.x;
+  // query rows that see a key of the block (dkdv_mma_kernel's range)
+  const int k_last = min(k0 + 64 * kKvWgs, Sk) - 1;
+  const int i_lo = mask.causal ? max(0, k0 - mask.q_offset) : 0;
+  int i_hi = Sq - 1;
+  if (mask.window > 0 && !mask.empty(mask.q_offset + Sq - 1)) {
+    i_hi = min(Sq - 1, k_last + mask.window - 1 - mask.q_offset);
+  }
+  const int qt_lo = i_lo / 64;
+  const int n_qt = i_lo <= i_hi ? i_hi / 64 - qt_lo + 1 : 0;
+  const int items = G * n_qt;  // (q head, query tile), head slowest
+
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kKvWgs);
+    }
+    mbar_init(&kv_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * kKvWgs) {  // the producer warpgroup; one thread issues
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 128 * kKvWgs) {
+      const int tiles = min(kKvWgs, (Sk - k0 + 63) / 64);
+      mbar_expect_tx(&kv_full, 2 * tiles * TILE);
+      for (int w = 0; w < tiles; ++w) {
+        for (int nb = 0; nb < NB; ++nb) {
+          tma_load4(sK + w * TILE + nb * kBox, &mk, nb * 64, k0 + 64 * w, kvh,
+                    b, &kv_full);
+          tma_load4(sV + w * TILE + nb * kBox, &mv, nb * 64, k0 + 64 * w, kvh,
+                    b, &kv_full);
+        }
+      }
+      const long long plane = static_cast<long long>(B) * H * SqP;
+      for (int it = 0; it < items; ++it) {
+        const int s = it % kWgStages;
+        if (it >= kWgStages) mbar_wait(&empty[s], ((it / kWgStages) - 1) & 1);
+        const int h = kvh * G + it / n_qt;
+        const int q0 = (qt_lo + it % n_qt) * 64;
+        unsigned char* st = ring + s * STAGE;
+        mbar_expect_tx(&full[s], 2 * TILE + 512);
+        for (int nb = 0; nb < NB; ++nb) {
+          tma_load4(st + nb * kBox, &mq, nb * 64, q0, h, b, &full[s]);
+          tma_load4(st + TILE + nb * kBox, &mdo, nb * 64, q0, h, b, &full[s]);
+        }
+        const float* row = stats + (static_cast<long long>(b) * H + h) * SqP +
+                           q0;
+        bulk_load(st + 2 * TILE, row, 256, &full[s]);
+        bulk_load(st + 2 * TILE + 256, row + plane, 256, &full[s]);
+      }
+    }
+  } else {  // the consumer warpgroups: the paths never join again
+    setmaxnreg_inc<kKvRegs>();
+    const int wg = tid >> 7;
+    const int wt = tid & 127;
+    const int warp = wt >> 5;
+    const int lane = tid & 31;
+    const int t4 = lane & 3;
+    const int wk0 = k0 + 64 * wg;
+    const int nkw = min(64, Sk - wk0);  // <= 0: the warpgroup has no keys
+    const unsigned char* kt = sK + wg * TILE;
+    const unsigned char* vt = sV + wg * TILE;
+    const int key_base = wk0 + 16 * warp + (lane >> 2);  // + 0, + 8
+    const float sl2 = scale * kLog2e;
+    float dk_acc[HD / 2], dv_acc[HD / 2];
+  #pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(&kv_full, 0);
+
+    for (int it = 0; it < items; ++it) {
+      const int s = it % kWgStages;
+      mbar_wait(&full[s], (it / kWgStages) & 1);
+      const unsigned char* sq = ring + s * STAGE;
+      const unsigned char* sdo = sq + TILE;
+      const float* st = reinterpret_cast<const float*>(sq + 2 * TILE);
+      const int q0 = (qt_lo + it % n_qt) * 64;
+      const int qp0 = mask.q_offset + q0;
+      const int nq = min(64, Sq - q0);
+      const int qpz = qp0 + nq - 1;
+      // no (row, key) pair of the tile is kept (rows that keep no key keep
+      // every key, so a tile with one is never skipped)
+      const bool dead = nkw <= 0 ||
+                        (!mask.empty(qpz) && (mask.hi(qpz) < wk0 ||
+                                              mask.lo(qp0) > wk0 + nkw - 1));
+      if (!dead) {
+        // every row is real and keeps a range covering the 64 keys
+        const bool masked = nq < 64 || nkw < 64 || mask.empty(qpz) ||
+                            mask.lo(qpz) > wk0 || mask.hi(qp0) < wk0 + 63;
+        float sa[32], pa[32];  // S^T, then P; dP^T, then dS
+        wgmma_fence();
+  #pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {  // S^T = K Q^T
+          wgmma_ss_m64n64k16<0>(sa, desc_k(kt, kk), desc_k(sq, kk), kk);
+        }
+        wgmma_commit();
+  #pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {  // dP^T = V dO^T
+          wgmma_ss_m64n64k16<0>(pa, desc_k(vt, kk), desc_k(sdo, kk), kk);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // S^T is done
+        fence_regs(sa);
+  #pragma unroll
+        for (int j = 0; j < 8; ++j) {
+  #pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t4 + (e & 1);  // query in the tile
+            const float x = sa[4 * j + e] * sl2 - st[col];
+            float p;
+            if (!masked) {
+              p = fast_exp2(x);
+            } else {
+              const int qp = qp0 + col;
+              const int key = key_base + 8 * (e >> 1);
+              p = col < nq && mask.keep(qp, key)
+                      ? fast_exp2(mask.empty(qp) ? -st[col] : x)
+                      : 0.f;
+            }
+            sa[4 * j + e] = p;
+          }
+        }
+        uint32_t pf[4][4], df[4][4];  // P^T and dS^T as A operands
+        to_a(pf, sa);
+        wgmma_fence();
+  #pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {  // dV += P^T dO, over dS's work
+          product_rs<HD>(dv_acc, pf[kq], desc_mn(sdo, kq));
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T is done
+        fence_regs(pa);
+  #pragma unroll
+        for (int j = 0; j < 8; ++j) {
+  #pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t4 + (e & 1);
+            const float ds = sa[4 * j + e] * (pa[4 * j + e] - st[64 + col]);
+            pa[4 * j + e] = masked && mask.empty(qp0 + col) ? 0.f : ds;
+          }
+        }
+        to_a(df, pa);
+        wgmma_fence();
+  #pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {  // dK += dS^T Q
+          product_rs<HD>(dk_acc, df[kq], desc_mn(sq, kq));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        fence_regs(pf);
+        fence_regs(df);
+      }
+      // the warpgroup's products of the stage are done (a product completes
+      // only once its four warps have issued it, after their reads of st)
+      if (wt == 0) mbar_arrive(&empty[s]);
+    }
+
+    // each warpgroup stages into its own K and V tiles, which only it reads
+    stage_tile<HD>(sK + wg * TILE, dk_acc, scale, warp, lane);
+    stage_tile<HD>(sV + wg * TILE, dv_acc, 1.f, warp, lane);
+    named_barrier(1 + wg, 128);
+    if (nkw > 0) {
+      store_tile<HD>(dk + b * dks.b + kvh * dks.h + wk0 * dks.s, dks.s,
+                     sK + wg * TILE, nkw, wt);
+      store_tile<HD>(dv + b * dvs.b + kvh * dvs.h + wk0 * dvs.s, dvs.s,
+                     sV + wg * TILE, nkw, wt);
+    }
+  }
+}
+
+// One CTA per (block of 64 kQWgs query rows, q head, batch), block index
+// slowest and the last blocks (the most keys under a causal mask) first.
+template <int HD>
+__global__ void __launch_bounds__(kQThreads, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv,
+                const __grid_constant__ CUtensorMap mdo,
+                const float* __restrict__ stats, bf16* __restrict__ dq,
+                int H, int KV, int B, int Sq, int Sk, int SqP, Strides dqs,
+                Mask mask, float scale, int qblocks) {
+  constexpr int TILE = wg_tile<HD>();
+  constexpr int NB = HD / 64;
+  constexpr int KS = HD / 16;
+  constexpr int STAGE = 2 * TILE;  // K, then V
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kWgStages];
+  __shared__ __align__(8) uint64_t empty[kWgStages];
+  __shared__ __align__(8) uint64_t qo_full;
+  unsigned char* sQ = align1024(smem_raw);
+  unsigned char* sdO = sQ + kQWgs * TILE;
+  unsigned char* ring = sdO + kQWgs * TILE;
+
+  const int q0 = (qblocks - 1 - static_cast<int>(blockIdx.x / (H * B))) *
+                 64 * kQWgs;
+  const int h = blockIdx.x % H;
+  const int b = (blockIdx.x / H) % B;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int nq = min(64 * kQWgs, Sq - q0);
+  const int qp_first = mask.q_offset + q0;
+  const int qp_last = qp_first + nq - 1;
+  const bool any_empty = mask.empty(qp_last);
+  const int k_lo = any_empty ? 0 : mask.lo(qp_first);
+  const int k_hi = any_empty ? Sk - 1 : mask.hi(qp_last);
+  const int t_first = k_lo / 64;
+  const int n_t = k_lo <= k_hi ? k_hi / 64 - t_first + 1 : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kQWgs);
+    }
+    mbar_init(&qo_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * kQWgs) {  // the producer warpgroup; one thread issues
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 128 * kQWgs) {
+      const int tiles = min(kQWgs, (nq + 63) / 64);
+      mbar_expect_tx(&qo_full, 2 * tiles * TILE);
+      for (int w = 0; w < tiles; ++w) {
+        for (int nb = 0; nb < NB; ++nb) {
+          tma_load4(sQ + w * TILE + nb * kBox, &mq, nb * 64, q0 + 64 * w, h, b,
+                    &qo_full);
+          tma_load4(sdO + w * TILE + nb * kBox, &mdo, nb * 64, q0 + 64 * w, h,
+                    b, &qo_full);
+        }
+      }
+      for (int it = 0; it < n_t; ++it) {
+        const int s = it % kWgStages;
+        if (it >= kWgStages) mbar_wait(&empty[s], ((it / kWgStages) - 1) & 1);
+        const int kb0 = (t_first + it) * 64;
+        unsigned char* st = ring + s * STAGE;
+        mbar_expect_tx(&full[s], 2 * TILE);
+        for (int nb = 0; nb < NB; ++nb) {
+          tma_load4(st + nb * kBox, &mk, nb * 64, kb0, kvh, b, &full[s]);
+          tma_load4(st + TILE + nb * kBox, &mv, nb * 64, kb0, kvh, b,
+                    &full[s]);
+        }
+      }
+    }
+  } else {  // the consumer warpgroups: the paths never join again
+    setmaxnreg_inc<kQRegs>();
+    const int wg = tid >> 7;
+    const int wt = tid & 127;
+    const int warp = wt >> 5;
+    const int lane = tid & 31;
+    const int t4 = lane & 3;
+    const int wq0 = q0 + 64 * wg;
+    const int nqw = min(64, Sq - wq0);  // <= 0: the warpgroup has no rows
+    const int qpa = mask.q_offset + wq0;
+    const int qpz = qpa + nqw - 1;
+    const bool wg_empty = mask.empty(qpz);
+    const int all_lo = mask.lo(qpz);
+    const int all_hi = mask.hi(qpa);
+    const unsigned char* qt = sQ + wg * TILE;
+    const unsigned char* dot = sdO + wg * TILE;
+    // this thread's two rows: 16 warp + lane / 4, and 8 below
+    float lse2[2], dl[2];
+    bool live[2];
+    const long long plane = static_cast<long long>(B) * H * SqP;
+    const float* row0 = stats + (static_cast<long long>(b) * H + h) * SqP;
+  #pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wq0 + 16 * warp + (lane >> 2) + 8 * i;
+      const bool in = r < Sq;
+      lse2[i] = in ? row0[r] : 0.f;
+      dl[i] = in ? row0[plane + r] : 0.f;
+      live[i] = in && !mask.empty(mask.q_offset + r);
+    }
+    const float sl2 = scale * kLog2e;
+    float dq_acc[HD / 2];
+  #pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.f;
+    mbar_wait(&qo_full, 0);
+
+    for (int it = 0; it < n_t; ++it) {
+      const int s = it % kWgStages;
+      mbar_wait(&full[s], (it / kWgStages) & 1);
+      const unsigned char* sk = ring + s * STAGE;
+      const unsigned char* sv = sk + TILE;
+      const int kb0 = (t_first + it) * 64;
+      const int nk = min(64, Sk - kb0);
+      // rows that keep no key add nothing to dq
+      const bool dead = nqw <= 0 || mask.empty(qpa) || mask.hi(qpz) < kb0 ||
+                        mask.lo(qpa) > kb0 + nk - 1;
+      if (!dead) {
+        const bool masked = nqw < 64 || nk < 64 || wg_empty || kb0 < all_lo ||
+                            kb0 + 63 > all_hi;
+        float sa[32], pa[32];  // S, then P; dP, then dS
+        wgmma_fence();
+  #pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {  // S = Q K^T
+          wgmma_ss_m64n64k16<0>(sa, desc_k(qt, kk), desc_k(sk, kk), kk);
+        }
+        wgmma_commit();
+  #pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {  // dP = dO V^T
+          wgmma_ss_m64n64k16<0>(pa, desc_k(dot, kk), desc_k(sv, kk), kk);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // S is done
+        fence_regs(sa);
+  #pragma unroll
+        for (int j = 0; j < 8; ++j) {
+  #pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            bool keep = live[i];
+            if (masked) {
+              const int qp = qpa + 16 * warp + (lane >> 2) + 8 * i;
+              keep = keep && mask.keep(qp, kb0 + 8 * j + 2 * t4 + (e & 1));
+            }
+            sa[4 * j + e] =
+                keep ? fast_exp2(sa[4 * j + e] * sl2 - lse2[i]) : 0.f;
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(pa);
+  #pragma unroll
+        for (int j = 0; j < 8; ++j) {
+  #pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pa[4 * j + e] = sa[4 * j + e] * (pa[4 * j + e] - dl[e >> 1]);
+          }
+        }
+        uint32_t df[4][4];  // dS as A operands
+        to_a(df, pa);
+        wgmma_fence();
+  #pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {  // dQ += dS K
+          product_rs<HD>(dq_acc, df[kk], desc_mn(sk, kk));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq_acc);
+        fence_regs(df);
+      }
+      if (wt == 0) mbar_arrive(&empty[s]);
+    }
+
+    stage_tile<HD>(sQ + wg * TILE, dq_acc, scale, warp, lane);
+    named_barrier(1 + wg, 128);
+    if (nqw > 0) {
+      store_tile<HD>(dq + b * dqs.b + h * dqs.h + wq0 * dqs.s, dqs.s,
+                     sQ + wg * TILE, nqw, wt);
+    }
+  }
+}
+
+// A 4-D map of a [B][heads][S][hd] bf16 tensor (element strides ``st``,
+// hd contiguous) with a box of [64 rows][64] and the 128-byte swizzle.
+// Rows past S read as zeros.  A dimension of one takes a nominal stride.
+int make_map4(CUtensorMap* out, const void* ptr, int hd, int S, int heads,
+              int B, Strides st) {
+  repro_torch::EncodeTiled encode = repro_torch::tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t s1 = static_cast<cuuint64_t>(st.s) * 2;
+  cuuint64_t s2 = static_cast<cuuint64_t>(st.h) * 2;
+  cuuint64_t s3 = static_cast<cuuint64_t>(st.b) * 2;
+  if (S == 1 || s1 == 0) s1 = static_cast<cuuint64_t>(hd) * 2;
+  if (heads == 1 || s2 == 0) s2 = s1 * S;
+  if (B == 1 || s3 == 0) s3 = s2 * heads;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {s1, s2, s3};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  if (encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
+template <int HD>
+int launch_wgmma(const Args& a) {
+  static bool allowed_kv[kMaxDevices] = {};
+  static bool allowed_q[kMaxDevices] = {};
+  int err = allow_smem(dkdv_wgmma_kernel<HD>, dkdv_wg_smem<HD>(), allowed_kv);
+  if (err != 0) return err;
+  err = allow_smem(dq_wgmma_kernel<HD>, dq_wg_smem<HD>(), allowed_q);
+  if (err != 0) return err;
+  CUtensorMap mq, mk, mv, mdo;
+  if ((err = make_map4(&mq, a.q, HD, a.Sq, a.H, a.B, a.qs)) != 0 ||
+      (err = make_map4(&mk, a.k, HD, a.Sk, a.KV, a.B, a.ks)) != 0 ||
+      (err = make_map4(&mv, a.v, HD, a.Sk, a.KV, a.B, a.vs)) != 0 ||
+      (err = make_map4(&mdo, a.dout, HD, a.Sq, a.H, a.B, a.dos)) != 0) {
+    return err;
+  }
+  const int pitch = (a.Sq + 63) / 64 * 64;
+  float* stats = static_cast<float*>(a.delta);
+  const long long plane = static_cast<long long>(a.B) * a.H * pitch;
+  err = launch_delta<bf16>(a, stats + plane, stats, pitch);
+  if (err != 0) return err;
+  const long long kblocks = (a.Sk + 64 * kKvWgs - 1) / (64 * kKvWgs);
+  const long long qblocks = (a.Sq + 64 * kQWgs - 1) / (64 * kQWgs);
+  const long long kv_ctas = kblocks * a.KV * a.B;
+  const long long q_ctas = qblocks * a.H * a.B;
+  if (kv_ctas > 0x7fffffffLL || q_ctas > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dkdv_wgmma_kernel<HD><<<static_cast<unsigned>(kv_ctas), kKvThreads,
+                          dkdv_wg_smem<HD>(), a.stream>>>(
+      mq, mk, mv, mdo, stats, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.H, a.KV, a.B, a.Sq, a.Sk, pitch, a.dks,
+      a.dvs, a.mask, a.scale);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  dq_wgmma_kernel<HD><<<static_cast<unsigned>(q_ctas), kQThreads,
+                        dq_wg_smem<HD>(), a.stream>>>(
+      mq, mk, mv, mdo, stats, static_cast<bf16*>(a.dq), a.H, a.KV, a.B, a.Sq,
+      a.Sk, pitch, a.dqs, a.mask, a.scale, static_cast<int>(qblocks));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------ f32 cores
@@ -891,26 +1561,19 @@ int launch_f32_nc(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_delta(const Args& a) {
-  const long long rows = static_cast<long long>(a.B) * a.H * a.Sq;
-  const long long blocks = (rows + 7) / 8;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  delta_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, a.stream>>>(
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
-      static_cast<float*>(a.delta), a.H, a.Sq, a.hd, a.os, a.dos, rows);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Strides are in elements, for
-// the (batch, head, sequence) dimensions of q, k, v, o, dout, dq, dk, dv;
-// the head dimension is contiguous and every row 16-byte aligned.  lse is
-// the forward's f32 [B, H, Sq] output; delta an f32 [B, H, Sq] workspace.
-// dq, dk and dv are written whole (rows no query sees get zeros).
-// Launches three kernels (delta, dkdv, dq) on ``stream`` and returns the
-// first cudaError any launch reports.
+// dtype codes: 0 = float32, 1 = bfloat16; route codes (the wrapper's
+// choice, see the note at the top): 0 the f32 CUDA cores, 1 mma.sync, 2
+// wgmma (bf16 at hd 64 and 128).  Strides are in elements, for the
+// (batch, head, sequence) dimensions of q, k, v, o, dout, dq, dk, dv; the
+// head dimension is contiguous and every row 16-byte aligned.  lse is the
+// forward's f32 [B, H, Sq] output; delta an f32 workspace of 2 B H SqP
+// floats, SqP = Sq rounded up to 64 (routes 0 and 1 use its first B H Sq
+// as D; route 2 LSE log2(e) [B H][SqP], then D [B H][SqP]).  dq, dk and
+// dv are written whole (rows no query sees get zeros).  Launches three
+// kernels (D, dkdv, dq) on ``stream`` and returns the first cudaError any
+// launch reports.
 extern "C" int launch_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
@@ -921,7 +1584,7 @@ extern "C" int launch_flash_attention_bwd(
     long long do_sb, long long do_sh, long long do_ss, long long dq_sb,
     long long dq_sh, long long dq_ss, long long dk_sb, long long dk_sh,
     long long dk_ss, long long dv_sb, long long dv_sh, long long dv_ss,
-    int causal, int window, int q_offset, float scale, int dtype,
+    int causal, int window, int q_offset, float scale, int dtype, int route,
     void* stream) {
   if (hd % 8 != 0 || hd < 8 || hd > kMaxHd || KV < 1 || H % KV != 0 ||
       Sq < 1 || Sk < 1 || B < 1 || window < 0 || q_offset < 0) {
@@ -934,15 +1597,14 @@ extern "C" int launch_flash_attention_bwd(
          Strides{dk_sb, dk_sh, dk_ss}, Strides{dv_sb, dv_sh, dv_ss},
          Mask{Sk, causal, window, q_offset}, scale,
          static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) {
-    int err = launch_delta<float>(a);
+  if (dtype == 0 && route == 0) {
+    int err = launch_delta<float>(a, static_cast<float*>(delta), nullptr,
+                                  Sq);
     if (err != 0) return err;
     return hd <= 128 ? launch_f32_nc<1>(a) : launch_f32_nc<2>(a);
   }
-  if (dtype == 1) {
-    int err = launch_delta<bf16>(a);
-    if (err != 0) return err;
-    return launch_bf16(a);
-  }
+  if (dtype == 1 && route == 1) return launch_mma_route(a);
+  if (dtype == 1 && route == 2 && hd == 64) return launch_wgmma<64>(a);
+  if (dtype == 1 && route == 2 && hd == 128) return launch_wgmma<128>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -23,7 +23,8 @@
 // Design.  bf16 with 16-byte rows (every serving shape) takes
 // gmm_tma_kernel at every capacity: 64 x 128 output tiles, TMA copies
 // into a 3-deep ring of shared memory fed by a producer warp, wgmma
-// m64n128k16 in one consumer warpgroup (see the kernel's note).  90
+// m64n128k16 in one consumer warpgroup (see the kernel's note; the wgmma,
+// descriptor, mbarrier and TMA helpers are hopper.cuh's).  90
 // registers and 73 KB of shared memory a CTA (ptxas -v, the flags of
 // _build.py; no spills), so three CTAs share an SM.  The weights' TMA
 // maps are kept between calls.  Measured against it on the H100
@@ -46,8 +47,23 @@
 #include <mutex>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using repro_torch::fence_regs;
+using repro_torch::mbar_arrive;
+using repro_torch::mbar_expect_tx;
+using repro_torch::mbar_init;
+using repro_torch::mbar_init_fence;
+using repro_torch::mbar_wait;
+using repro_torch::smem_desc;
+using repro_torch::smem_u32;
+using repro_torch::tma_load3;
+using repro_torch::wgmma_commit;
+using repro_torch::wgmma_fence;
+using repro_torch::wgmma_ss_m64n128k16;
+using repro_torch::wgmma_wait;
 
 constexpr int kMaxDevices = 64;
 
@@ -129,76 +145,6 @@ int launch_simple(const void* x, const void* w, void* y, int E, int C, int D,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------------ wgmma (sm_90a)
-// Hopper's warpgroup products: wgmma.mma_async m64n128k16, A and B read
-// from shared memory through matrix descriptors, f32 accumulators in
-// registers (64 a thread; thread t of the warpgroup holds, for each n8
-// block j, rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j +
-// 2 (t % 4) (+ 1), the mma.sync C layout).
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator accesses across a wait
-__device__ __forceinline__ void fence_acc(float (&acc)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
-}
-
-// A shared-memory matrix descriptor for the 128-byte swizzle: start
-// address, leading and stride byte offsets (all >> 4), layout type 1
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// d += A (64 x 16, K-major) . B (16 x 128, N-major: transposed)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 // ------------------------------------------------------ the bf16 kernel
 // gmm_tma_kernel: one CTA per (64-row tile, 128 columns, expert), blocks
 // numbered row tile fastest, then column tile, then expert, so the tiles
@@ -235,50 +181,6 @@ constexpr int kTmaThreads = kConsumers + 32;
 // the ring, and room to align it to the swizzle's 1024 bytes
 constexpr size_t kTmaSmem = static_cast<size_t>(kStages) * kStageBytes + 1024;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
-                                          int c0, int c1, int c2,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
-         "r"(c1), "r"(c2), "r"(smem_u32(bar))
-      : "memory");
-}
-
 __global__ void __launch_bounds__(kTmaThreads)
 gmm_tma_kernel(const __grid_constant__ CUtensorMap map_x,
                const __grid_constant__ CUtensorMap map_w,
@@ -298,7 +200,7 @@ gmm_tma_kernel(const __grid_constant__ CUtensorMap map_x,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 1);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -326,20 +228,20 @@ gmm_tma_kernel(const __grid_constant__ CUtensorMap map_x,
     mbar_wait(&full[s], (kt / kStages) & 1);
     const unsigned char* xs = ring + s * kStageBytes;
     const unsigned char* ws = xs + kXBytes;
-    fence_acc(acc);
+    fence_regs(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      wgmma_m64n128k16(acc, smem_desc(xs + kk * 32, 16, 1024),
-                       smem_desc(ws + kk * 2048, 8192, 1024));
+      wgmma_ss_m64n128k16<1>(acc, smem_desc(xs + kk * 32, 16, 1024),
+                             smem_desc(ws + kk * 2048, 8192, 1024), 1);
     }
     wgmma_commit();
     wgmma_wait<1>();  // chunk kt - 1's products are done: free its slot
-    fence_acc(acc);
+    fence_regs(acc);
     if (kt > 0 && tid == 0) mbar_arrive(&empty[(kt - 1) % kStages]);
   }
   wgmma_wait<0>();
-  fence_acc(acc);
+  fence_regs(acc);
 
   // the C layout: rows 16 (warp) + lane / 4 (+ 8), columns 8 j + 2 (lane
   // % 4) (+ 1); F is a multiple of 8, so both columns are in or out
@@ -359,28 +261,6 @@ gmm_tma_kernel(const __grid_constant__ CUtensorMap map_x,
           __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime (no libcuda link)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess) {
-      p = nullptr;
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // A 3-D bf16 map (dims innermost first, strides of dims 1 and 2 in
@@ -412,7 +292,7 @@ int make_map(CUtensorMap* out, const MapKey& k) {
       return 0;
     }
   }
-  EncodeTiled encode = encoder();
+  repro_torch::EncodeTiled encode = repro_torch::tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k.d0),
                               static_cast<cuuint64_t>(k.d1),

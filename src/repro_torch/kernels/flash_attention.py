@@ -105,6 +105,22 @@ def flash_attention(
 
 flash_attention.launches = 0
 
+#: K3's backward routes, the kernels each dtype and head width take:
+#: "wgmma" (bf16 at hd 64 and 128: warpgroup products fed by TMA, the
+#: H100 design), "mma" (bf16 at every other hd — MLA's 192, gemma3's 256
+#: and the narrow test widths — keeps the mma.sync kernels: at hd 256 a
+#: 64-key warpgroup would hold about 256 f32 accumulators a thread for dK
+#: and dV), "f32" (the CUDA-core kernels of the f32 reference checks)
+WGMMA_HEAD_DIMS = (64, 128)
+ROUTE_CODE = {"f32": 0, "mma": 1, "wgmma": 2}
+
+
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The route of K3's backward for ``dtype`` and head width ``hd``."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if hd in WGMMA_HEAD_DIMS else "mma"
+
 
 def flash_attention_bwd(
     q: torch.Tensor,  # [B, H, Sq, hd] bf16 | f32
@@ -123,8 +139,9 @@ def flash_attention_bwd(
     buffer (the layout the model's projections transpose back for free).
     Three kernels: D = rowsum(dO o O), then dK/dV per (batch, kv head,
     key block) summed over the group's q heads, then dQ per (batch, q
-    head, query block); deterministic (no atomics).  One call adds one to
-    ``launches``.  The mask is the forward's; a row that keeps no key
+    head, query block), on the route :func:`bwd_route` names;
+    deterministic (no atomics).  One call adds one to ``launches``,
+    whichever the route.  The mask is the forward's; a row that keeps no key
     (its output was the mean of V) adds P dO = dO / Sk to every key's dV
     and nothing to dq or dk."""
     tensors = (q, k, v, out, dout)
@@ -173,7 +190,10 @@ def flash_attention_bwd(
     dk = torch.empty((b, sk, kv, hd), dtype=q.dtype,
                      device=q.device).transpose(1, 2)
     dv = torch.empty_like(dk)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # D, and the wgmma route's LSE log2(e) beside it, over rows padded to
+    # a 64-row tile
+    delta = torch.empty(2 * b * h * (-(-sq // 64) * 64), dtype=torch.float32,
+                        device=q.device)
     lib = _build.library("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -184,7 +204,7 @@ def flash_attention_bwd(
             *[s for st in strides for s in st],
             *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
             int(causal), window, q_offset, 1.0 / math.sqrt(hd),
-            DTYPE_CODE[q.dtype], stream,
+            DTYPE_CODE[q.dtype], ROUTE_CODE[bwd_route(q.dtype, hd)], stream,
         )
     raise_on_launch_error(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1

@@ -9,9 +9,10 @@ raises if the launch reports an error, and adds one to its ``launches``
 it).  The forward's scratch holds per-chunk running decays, totals and
 states, and the chunks' score tiles and C^T tiles, in one buffer; the
 backward's the same decays and totals, each chunk's incoming state and
-the gradient of its outgoing one, and per-head partials of dB, dC and
-dA.  They take CUDA tensors only: the plain versions are
-:func:`repro_torch.kernels.ref.ssd_scan_ref` and
+the gradient of its outgoing one, the score tiles, per head group the
+summed ds and the dB and dC terms, and per (chunk, head) the
+per-position terms and the share of dA.  They take CUDA tensors only:
+the plain versions are :func:`repro_torch.kernels.ref.ssd_scan_ref` and
 :func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`, and
 :mod:`repro_torch.kernels.ops` chooses between the two.
 """
@@ -27,6 +28,9 @@ from ._build import raise_on_launch_error
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 64, 128
 #: rows and columns of the kernel's square score tiles
 TILE = 64
+#: the backward's heads per group (the heads one CTA item walks, whose ds
+#: it sums before the products over ds) and its per-position terms
+HEAD_GROUP, BWD_TERMS = 16, 9
 
 
 def _check(x, dt, A, Bm, C, chunk, dy=None):
@@ -127,10 +131,11 @@ def ssd_scan_bwd(
     """K6's backward on the card: ``(dx, ddt, dA, dB, dC)`` of the scan
     :func:`ssd_scan` computes from these inputs, under ``dy``, all f32
     and contiguous, in the order of work of
-    :func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`.  Five kernels
-    (four for a scan of one chunk); the chunks' states are recomputed
-    from the inputs, not saved by the forward; deterministic (no
-    atomics).  The kernel's limits are the forward's."""
+    :func:`repro_torch.kernels.ref.ssd_scan_bwd_ref`.  Eight kernels
+    (seven for a scan of one chunk); the chunks' states are recomputed
+    from the inputs, not saved by the forward; the score tiles and the
+    products over ds run once per chunk, on the heads' summed ds;
+    deterministic (no atomics).  The kernel's limits are the forward's."""
     b, s, nh, hd, ds = _check(x, dt, A, Bm, C, chunk, dy=dy)
     nc = -(-s // chunk)
     empty = dict(dtype=torch.float32, device=x.device)
@@ -139,11 +144,19 @@ def ssd_scan_bwd(
     dA = torch.empty((nh,), **empty)
     dB = torch.empty((b, s, ds), **empty)
     dC = torch.empty((b, s, ds), **empty)
-    # seg, total, H_in and dS per chunk (past one chunk), the per-head
-    # partials of dB and dC, the per-chunk ones of dA; 256-byte offsets
+    # seg, total, H_in and dS per chunk (past one chunk); the chunks'
+    # score tiles, once for every head; per head group the summed ds of
+    # each tile pair and the dC and dB terms; each (chunk, head)'s
+    # per-position terms and share of dA; 256-byte offsets
+    tiles = -(-chunk // TILE)
+    pairs = tiles * (tiles + 1) // 2
+    groups = -(-nh // HEAD_GROUP)
     state = b * nh * nc * hd * ds if nc > 1 else 0
     sizes = [b * nh * nc * chunk, b * nh * nc, state, state,
-             b * nc * nh * chunk * ds, b * nc * nh * chunk * ds, b * nc * nh]
+             b * nc * pairs * TILE * TILE,
+             b * nc * groups * pairs * TILE * TILE,
+             b * nc * groups * chunk * ds, b * nc * groups * chunk * ds,
+             b * nc * nh * BWD_TERMS * chunk, b * nc * nh]
     sizes = [-(-n // 64) * 64 for n in sizes]
     scratch = torch.empty(sum(sizes), **empty)
     ptrs, base = [], scratch.data_ptr()

@@ -448,3 +448,19 @@ def test_flash_bf16_weights_stay_within_one_ulp(b, h, kv, sq, sk, hd, causal,
     exact = ref.flash_attention_ref(qf, kf, vf, **kw)
     diff = (unrounded - exact).abs().max().item()
     assert diff < (ulp / 2 if parts == 1 else ulp / 256), (diff, ulp)
+
+
+def test_flash_backward_routes():
+    """K3's backward takes the wgmma kernels in bf16 at hd 64 and 128, the
+    mma.sync kernels at every other bf16 width (MLA's 192, gemma3's 256,
+    the narrow smoke widths), the CUDA-core kernels in f32; the card tests
+    run each route (``test_torch_cuda.BWD_SHAPES``)."""
+    from repro_torch.kernels.flash_attention import (
+        WGMMA_HEAD_DIMS, bwd_route,
+    )
+    assert WGMMA_HEAD_DIMS == (64, 128)
+    assert [bwd_route(torch.bfloat16, hd) for hd in (16, 32, 64, 128, 192,
+                                                      256)] == [
+        "mma", "mma", "wgmma", "wgmma", "mma", "mma"]
+    assert {bwd_route(torch.float32, hd) for hd in (16, 64, 128, 256)} == {
+        "f32"}

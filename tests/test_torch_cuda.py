@@ -874,9 +874,18 @@ def test_cluster_migrates_and_restores_from_a_checkpoint(dev, tmp_path):
 # 512), whisper's encoder (non-causal, hd 64) and cross-attention (Sq 64
 # over 300 keys), MLA (q/k 192, V 128 padded) — GQA groups of 1 to 16,
 # ragged lengths and widths (the hd 16, 32 and 24 templates), an
-# offset, and the smoke shape, whose last two rows keep no key
+# offset, and the smoke shape, whose last two rows keep no key; and the
+# edges of the wgmma route's 64-row TMA tiles (hd 64 and 128): S of
+# 1,000 and 200 (a ragged last tile), q heads per kv head of 1, 2 and 8,
+# q_offset > 0 and a window at each of its widths
 BWD_SHAPES = [
     (1, 16, 8, 256, 256, 128, 128, True, 0, 0),
+    (1, 8, 1, 1000, 1000, 128, 128, True, 0, 0),
+    (2, 4, 4, 200, 200, 64, 64, True, 0, 0),
+    (1, 4, 2, 200, 200, 64, 64, True, 64, 0),
+    (1, 4, 2, 300, 300, 128, 128, True, 100, 0),
+    (1, 8, 1, 130, 260, 64, 64, True, 0, 130),
+    (1, 2, 1, 1000, 1000, 64, 64, False, 0, 0),
     (1, 4, 1, 640, 640, 256, 256, True, 512, 0),
     (1, 8, 8, 300, 300, 64, 64, False, 0, 0),
     (1, 8, 8, 64, 300, 64, 64, False, 0, 0),
@@ -947,6 +956,29 @@ def test_flash_backward_matches_plain(dev, dtype, b, h, kv, sq, sk, hd, vd,
         atol = _atol(w) if name == "out" else _bwd_atol(w)
         torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0,
                                    msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("hd,h,kv,causal,window", [
+    (128, 16, 8, True, 0), (128, 8, 1, True, 256), (64, 8, 8, False, 0),
+    (64, 8, 2, True, 100), (256, 4, 1, True, 512),
+])
+def test_flash_backward_is_deterministic(dev, hd, h, kv, causal, window):
+    """Two launches of K3's backward give the same bits on each route
+    (wgmma at hd 64 and 128, mma.sync at 256): causal, windowed, GQA; no
+    atomics, every sum in one order."""
+    gen = torch.Generator(device=dev).manual_seed(hd + h + window)
+    s = 1000
+    q = _rand(gen, dev, torch.bfloat16, 2, h, s, hd)
+    k = _rand(gen, dev, torch.bfloat16, 2, kv, s, hd)
+    v = _rand(gen, dev, torch.bfloat16, 2, kv, s, hd)
+    dout = _rand(gen, dev, torch.bfloat16, 2, h, s, hd)
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    first = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    second = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.isfinite(a.float()).all() and torch.equal(a, b_)
 
 
 def test_flash_backward_of_a_row_without_a_key(dev):
@@ -1031,13 +1063,18 @@ def test_kernels_without_a_backward_raise_when_a_gradient_is_needed(dev):
 #: a ragged last chunk (600, 1000), whole chunks (512) at mamba2's widths
 #: (80 heads of 64, ds 128, Q 256), zamba2's (64 heads, ds 64) at 700,
 #: and narrow ones: hd 24 and ds 40 (both tiles zero-padded), a chunk
-#: of 100 (a ragged second tile in every chunk), ds 100
+#: of 100 (a ragged second tile in every chunk), ds 100; and head counts
+#: that do not fill the kernel's groups of 16 heads: 21 at ds 128
+#: (ragged), 5 at ds 64 (ragged, B 2), 3 below one chunk, 33 (three
+#: groups, the last of one head) at a chunk of 64
 SSD_BWD_SHAPES = [
     (1, 1, 80, 64, 128, 256), (1, 64, 80, 64, 128, 256),
     (2, 200, 80, 64, 128, 256), (1, 600, 80, 64, 128, 256),
     (1, 512, 80, 64, 128, 256), (1, 1000, 80, 64, 128, 256),
     (2, 700, 64, 64, 64, 256), (1, 45, 3, 16, 8, 32),
     (2, 230, 5, 24, 40, 100), (1, 300, 3, 64, 100, 128),
+    (1, 600, 21, 64, 128, 256), (2, 300, 5, 64, 64, 256),
+    (1, 100, 3, 64, 128, 256), (1, 150, 33, 32, 64, 64),
 ]
 #: K6's backward against autodiff of the plain scan, of max |plain|: the
 #: f32 terms summed in other orders; dx, dB and dC within 1e-4 (the CPU

@@ -22,6 +22,13 @@ the JAX package, on the CPU.
     1.1e-4): XLA's cumsum sums seg in another order than torch's
     sequential one (335 of 768 sums of order 10^3 differ, by up to
     3.7e-4), and exp(seg_i - seg_j) carries that difference.
+* ``_tiled_ssd_bwd``, the order of work of ``ssd_scan_bwd.cu`` restated
+  in plain torch (the scores once a tile pair, the heads' ds summed per
+  head group of ``ssd_scan.HEAD_GROUP`` before the products over ds, the
+  per-position terms and the dseg pass, dC and dB from the groups'
+  partials), against ``ref.ssd_scan_bwd_ref`` at ``BWD_CASES`` and at
+  head counts that are not a multiple of the group (21 and 5; 33 over
+  three groups), within the same limits as autograd's.
 * The Mamba-2 block in f32 (``mamba2-2.7b.smoke()``): every parameter's
   and the input's gradient against ``jax.vjp`` of the JAX block, whose
   ``bf16_grad`` at the five input projections returns a bf16 cotangent
@@ -67,6 +74,15 @@ CFG = ARCHS["mamba2-2.7b"].smoke()
 TCFG = TARCHS["mamba2-2.7b"].smoke()
 
 BWD_CASES = {**SCAN_CASES, "chunk_256_ragged": (1, 600, 3, 16, 16, 256)}
+#: (B, S, nh, hd, ds, chunk) where the heads do not fill the kernel's head
+#: groups: one group and 5 (two tiles a chunk, the last chunk ragged), a
+#: ragged second tile in every chunk, three groups (16, 16, 1)
+GROUP_CASES = {
+    "group_and_5": (1, 300, 21, 8, 8, 128),
+    "five_heads_chunk_100": (2, 230, 5, 16, 16, 100),
+    "three_groups": (1, 140, 33, 8, 8, 64),
+}
+TILE = 64  # the kernel's query and key tiles
 
 
 def _cotangent(seed, shape):
@@ -107,6 +123,156 @@ def test_ssd_scan_bwd_ref_matches_autograd_and_jax(case):
     if chunk == 256:
         rtols["ddt"] = JAX_DDT_Q256_RTOL
     _assert_grads(got, jgrads, "jax.vjp", rtols)
+
+
+def _tiled_ssd_bwd(x, dt, A, Bm, C, dy, chunk):
+    """K6's backward in the kernel's order of work, plain torch, f32.
+    Passes 1-2: each chunk's seg, the incoming state H_in and the
+    outgoing state's gradient dS.  Per chunk: pass 3 the score tiles C_i
+    B_j^T of every pair it >= jt, once; pass 4, per key tile jt and head
+    group, per head in order and query tile it >= jt, dM = dy_i x_j^T, M,
+    ds = dM L dt_j summed over the group's heads, dx_j += M^T dy_i, W's
+    row sums per (jt, row) and its and P's column sums; pass 5, per row
+    tile and group, the state terms: V = x_j dS, q_j = V_j . B_j, u_j V_j
+    summed over the group, dx_j += u_j B_j dS^T; Cin = dy_i H_in, e_i C_i
+    . Cin_i, e_i Cin_i summed over the group; pass 6 dseg from the terms,
+    dtotal, the reverse running sum, ddt and each chunk's share of dA;
+    pass 7 dC_i = sum_jt ds(i, jt) B_jt and dB_j = sum_it ds(it, j)^T C_it
+    with ds summed over the groups in order, plus the groups' terms.  seg
+    is the plain backward's cumsum, so that only the order of these
+    passes differs (the kernel's in-order seg moves ddt by up to 1.1e-4
+    of max |ddt| here, within the card tests' limit)."""
+    b, s, nh, hd = x.shape
+    ds_ = Bm.shape[-1]
+    nc = -(-s // chunk)
+    groups = [range(g, min(nh, g + tssd.HEAD_GROUP))
+              for g in range(0, nh, tssd.HEAD_GROUP)]
+    dx = torch.zeros_like(x)
+    ddt = torch.zeros_like(dt)
+    dB = torch.zeros_like(Bm)
+    dC = torch.zeros_like(C)
+    dA = torch.zeros(nh)
+    for bi in range(b):
+        spans = [(c * chunk, min(chunk, s - c * chunk)) for c in range(nc)]
+        segs = [torch.cumsum(dt[bi, p0:p0 + n] * A, 0) for p0, n in spans]
+        H, H_in = torch.zeros(nh, hd, ds_), []
+        for c, (p0, n) in enumerate(spans):
+            H_in.append(H)
+            u = torch.exp(segs[c][-1] - segs[c]) * dt[bi, p0:p0 + n]
+            H = torch.exp(segs[c][-1])[:, None, None] * H + torch.einsum(
+                "th,thp,td->hpd", u, x[bi, p0:p0 + n], Bm[bi, p0:p0 + n])
+        G, dS = torch.zeros(nh, hd, ds_), [None] * nc
+        for c in reversed(range(nc)):
+            p0, n = spans[c]
+            dS[c] = G
+            e = torch.exp(segs[c])
+            G = torch.exp(segs[c][-1])[:, None, None] * G + torch.einsum(
+                "th,thp,td->hpd", e, dy[bi, p0:p0 + n], C[bi, p0:p0 + n])
+        for c, (p0, n) in enumerate(spans):
+            sg, total = segs[c], segs[c][-1]
+            tiles = [(t0, min(TILE, n - t0)) for t0 in range(0, n, TILE)]
+            rows = [slice(p0 + t0, p0 + t0 + r) for t0, r in tiles]
+            scores = {(it, jt): C[bi, rows[it]] @ Bm[bi, rows[jt]].T
+                      for it in range(len(tiles)) for jt in range(it + 1)}
+            terms = torch.zeros(nh, 9, n)
+            dsc = {}
+            cin = torch.zeros(len(groups), n, ds_)
+            bout = torch.zeros(len(groups), n, ds_)
+            for jt, (j0, rj) in enumerate(tiles):
+                for gi, heads in enumerate(groups):
+                    acc = {it: 0 for it in range(jt, len(tiles))}
+                    for h in heads:
+                        xj = x[bi, rows[jt], h]
+                        dxa = torch.zeros(rj, hd)
+                        col_w = torch.zeros(rj)
+                        col_p = torch.zeros(rj)
+                        for it in range(jt, len(tiles)):
+                            i0, ri = tiles[it]
+                            dyi = dy[bi, rows[it], h]
+                            dm = dyi @ xj.T
+                            ii = torch.arange(i0, i0 + ri)[:, None]
+                            jj = torch.arange(j0, j0 + rj)[None]
+                            keep = jj <= ii
+                            rel = torch.where(keep, sg[ii, h] - sg[jj, h],
+                                              torch.tensor(float("-inf")))
+                            L = torch.exp(rel)
+                            dtj = dt[bi, rows[jt], h][None]
+                            sc = scores[it, jt]
+                            m = sc * L * dtj
+                            dl = dm * L
+                            acc[it] = acc[it] + dl * dtj
+                            w = dm * m
+                            terms[h, jt, i0:i0 + ri] = w.sum(1)
+                            col_w += w.sum(0)
+                            col_p += (dl * sc).sum(0)
+                            dxa += m.T @ dyi
+                        terms[h, 4, j0:j0 + rj] = col_w
+                        terms[h, 5, j0:j0 + rj] = col_p
+                        dx[bi, rows[jt], h] = dxa
+                    for it, a in acc.items():
+                        dsc[gi, it, jt] = a
+            for r, (r0, nr) in enumerate(tiles):
+                for gi, heads in enumerate(groups):
+                    for h in heads:
+                        segr = sg[r0:r0 + nr, h]
+                        if c < nc - 1:
+                            v = x[bi, rows[r], h] @ dS[c][h]
+                            q = (v * Bm[bi, rows[r]]).sum(1)
+                            ex = torch.exp(total[h] - segr)
+                            u = ex * dt[bi, rows[r], h]
+                            terms[h, 7, r0:r0 + nr] = ex * q
+                            terms[h, 8, r0:r0 + nr] = u * q
+                            bout[gi, r0:r0 + nr] += u[:, None] * v
+                            z = Bm[bi, rows[r]] @ dS[c][h].T
+                            dx[bi, rows[r], h] += u[:, None] * z
+                        if c > 0:
+                            ci = dy[bi, rows[r], h] @ H_in[c][h]
+                            e = torch.exp(segr)
+                            terms[h, 6, r0:r0 + nr] = e * (
+                                C[bi, rows[r]] * ci).sum(1)
+                            cin[gi, r0:r0 + nr] += e[:, None] * ci
+            for h in range(nh):
+                row_w = torch.stack([
+                    terms[h, :t // TILE + 1, t].sum() for t in range(n)])
+                dseg = row_w - terms[h, 4] + terms[h, 6] - terms[h, 8]
+                dtotal = terms[h, 8].sum()
+                if 0 < c < nc - 1:
+                    dtotal = dtotal + torch.exp(total[h]) * (
+                        dS[c][h] * H_in[c][h]).sum()
+                d_dtA = dtotal + torch.flip(torch.cumsum(
+                    torch.flip(dseg, [0]), 0), [0])
+                ddt[bi, p0:p0 + n, h] = (terms[h, 5] + terms[h, 7]
+                                         + d_dtA * A[h])
+                dA[h] += (d_dtA * dt[bi, p0:p0 + n, h]).sum()
+            for r, (r0, nr) in enumerate(tiles):
+                acc = torch.zeros(nr, ds_)
+                for jt in range(r + 1):
+                    acc += sum(dsc[g, r, jt] for g in range(len(groups))) @ \
+                        Bm[bi, rows[jt]]
+                dC[bi, rows[r]] = acc + cin[:, r0:r0 + nr].sum(0)
+                acc = torch.zeros(nr, ds_)
+                for it in range(r, len(tiles)):
+                    acc += sum(dsc[g, it, r] for g in range(len(groups))).T \
+                        @ C[bi, rows[it]]
+                dB[bi, rows[r]] = acc + bout[:, r0:r0 + nr].sum(0)
+    return dx, ddt, dA, dB, dC
+
+
+@pytest.mark.parametrize("case", sorted({**BWD_CASES, **GROUP_CASES}))
+def test_tiled_ssd_bwd_matches_the_plain_backward(case):
+    """The kernel's order of work (``_tiled_ssd_bwd``) against
+    ``ref.ssd_scan_bwd_ref`` and autograd of the plain scan: the same f32
+    terms in other orders, within autograd's limits."""
+    b, s, nh, hd, ds, chunk = {**BWD_CASES, **GROUP_CASES}[case]
+    args = [torch.from_numpy(a) for a in
+            _scan_inputs(sum(map(ord, case)) + 5, b, s, nh, hd, ds)]
+    dy = torch.from_numpy(_cotangent(len(case) + 1, (b, s, nh, hd)))
+    got = [g.numpy() for g in _tiled_ssd_bwd(*args, dy, chunk)]
+    want = ref.ssd_scan_bwd_ref(*args, dy, chunk)
+    _assert_grads(got, [w.numpy() for w in want], "ref", AUTO_RTOLS)
+    leaves = [a.clone().requires_grad_() for a in args]
+    auto = torch.autograd.grad(ref.ssd_scan_ref(*leaves, chunk), leaves, dy)
+    _assert_grads(got, [a.numpy() for a in auto], "autograd", AUTO_RTOLS)
 
 
 def test_ssd_ops_differentiates_the_plain_version_on_cpu():
