@@ -161,15 +161,37 @@ Phases, each printing one JSON line (or one per kernel or run):
    backward launched for the Mamba-2 models; ``train-kernel-split``:
    the device kernels of one call of K3's and of K6's backward at their
    kernels-line cases, with each one's device time.
+16. ``spmd`` — the SPMD rules on a one-card ("data", "model") mesh
+   (``launch.mesh.make_debug_mesh``: a one-rank NCCL group):
+   granite-moe-3b-a800m at full width and 4 layers, its parameters
+   carried to the host and back onto the mesh through
+   ``dist.fault.elastic_reshard`` under its train_4k rules, trained 2
+   steps inside ``use_rules`` (every ``shard()`` pin of the model and the
+   batch resolving its axes) between two runs with no rules: losses,
+   grad norms and every parameter and moment leaf bit-equal, K3, K3's
+   backward and K5 launched as in train-granite and equally; internlm2-1.8b at full
+   width under its decode_32k rules, the reference phase's prefills and
+   paged decode step with and without rules: logits bit-equal, K3 and K1
+   once per layer of each call.  The placements' summary and the
+   phase's seconds;
+17. ``dryrun`` — ``python -m repro_torch.launch.dryrun`` on this
+   machine's torch for DRYRUN_CELLS (internlm2-1.8b train_4k and
+   granite-moe decode_32k on 16×16, granite-moe train_4k on 2×16×16),
+   each in its own process over torch's fake process group: every cell
+   placed as DTensors on the fake mesh and its step traced on fake
+   tensors under ``FlopCounterMode``, a check without compute on the
+   host (``"mesh": "fake"``), as the JAX package's dry-run is.  Each must
+   exit 0 with its record read back.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1.  Without a
 CUDA device, or without the port's sources beside this file, it exits
 non-zero and prints no result.
 
-``--only kernels`` (phase 3), ``--only reference`` (phase 7) or ``--only
-train`` (phase 15), or several, stops after those phases and prints
-neither the kernels line nor the result line.  Copied into the root of
+``--only kernels`` (phase 3), ``--only reference`` (phase 7), ``--only
+train`` (phase 15) or ``--only spmd`` (phases 16 and 17), or several,
+stops after those phases and prints neither the kernels line nor the
+result line.  Copied into the root of
 another checkout, such as a parent commit's, the script so holds that
 tree's package to its own inputs, timer and checks.
 """
@@ -1409,34 +1431,28 @@ def serve_gemma3(torch, cfg, params, ops, calls):
     return out
 
 
-def reference_phase(torch, cfg, params, ops, phase="reference"):
-    """One full-width decode step through K1 against the dense step
-    through K4 and the dense step of the plain versions
-    (``ops.plain_on_card``), on identical caches and batch shapes (3
-    requests plus one pad row / idle slot): logits within LOGIT_ATOL, and
-    in each pair every row's argmax equal or the reference's (the plain
-    step's, or K4's against K1) top-2 margin a near-tie."""
-    from repro_torch.models import (
-        decode_step, decode_step_paged, init_cache, prefill,
-    )
+def paged_step_batch(torch, cfg, params):
+    """The reference phase's batch: 3 requests of 40, 25 and 17 tokens,
+    each prefilled (K3) into its slot of 4 dense 64-position caches, and
+    one paged decode step over them and a pad row, its pages in a pool
+    gathered from the slots.  Returns (lens, slots, caches, the
+    prefills' logits, the ``decode_step_paged`` arguments after
+    ``params`` and its keyword arguments)."""
+    from repro_torch.models import init_cache, prefill
 
     rng = np.random.default_rng(SEED + 1)
     lens, slots, max_seq = [40, 25, 17], 4, 64
     caches = init_cache(cfg, slots, max_seq, device=DEV)
+    prefill_logits = []
     for s, n in enumerate(lens):
         toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)),
                                device=DEV)
-        _, c = prefill(cfg, params, toks, max_seq=max_seq)
+        logits, c = prefill(cfg, params, toks, max_seq=max_seq)
+        prefill_logits.append(logits)
         for (dk, dv), (pk, pv) in zip(caches["unit"].values(),
                                       c["unit"].values()):
             dk[:, s].copy_(pk[:, 0])
             dv[:, s].copy_(pv[:, 0])
-    def copy():
-        return {"unit": {k: (a.clone(), b.clone())
-                         for k, (a, b) in caches["unit"].items()},
-                "suffix": []}
-
-    dense, plain = copy(), copy()
     tables, src_slot, src_idx, pid = [], [], [], 0
     for s, n in enumerate(lens):
         row = list(range(pid, pid + n // PAGE + 1))
@@ -1453,15 +1469,36 @@ def reference_phase(torch, cfg, params, ops, phase="reference"):
     cuda = dict(dtype=torch.int32, device=DEV)
     tok = torch.as_tensor(rng.integers(0, cfg.vocab, (slots, 1)), **cuda)
     poss = torch.as_tensor(lens + [0], **cuda)
-    logits_p, _ = decode_step_paged(
-        cfg, params, tok, caches, poss,
-        torch.as_tensor([0, 1, 2, slots], **cuda),
-        torch.as_tensor(tab, **cuda),
-        torch.as_tensor([n + 1 for n in lens] + [0], **cuda),
-        torch.as_tensor(src_slot + [0] * pad, **cuda),
-        torch.as_tensor(src_idx + [0] * pad, **cuda),
-        page_tokens=PAGE, n_pool=n_pool,
-    )
+    args = (tok, caches, poss,
+            torch.as_tensor([0, 1, 2, slots], **cuda),
+            torch.as_tensor(tab, **cuda),
+            torch.as_tensor([n + 1 for n in lens] + [0], **cuda),
+            torch.as_tensor(src_slot + [0] * pad, **cuda),
+            torch.as_tensor(src_idx + [0] * pad, **cuda))
+    return (lens, slots, caches, prefill_logits, args,
+            {"page_tokens": PAGE, "n_pool": n_pool})
+
+
+def reference_phase(torch, cfg, params, ops, phase="reference"):
+    """One full-width decode step through K1 against the dense step
+    through K4 and the dense step of the plain versions
+    (``ops.plain_on_card``), on identical caches and batch shapes (3
+    requests plus one pad row / idle slot): logits within LOGIT_ATOL, and
+    in each pair every row's argmax equal or the reference's (the plain
+    step's, or K4's against K1) top-2 margin a near-tie."""
+    from repro_torch.models import decode_step, decode_step_paged
+
+    lens, slots, caches, _, args, kwargs = paged_step_batch(torch, cfg,
+                                                            params)
+    tok, poss = args[0], args[2]
+
+    def copy():
+        return {"unit": {k: (a.clone(), b.clone())
+                         for k, (a, b) in caches["unit"].items()},
+                "suffix": []}
+
+    dense, plain = copy(), copy()
+    logits_p, _ = decode_step_paged(cfg, params, *args, **kwargs)
     rows = torch.arange(len(lens), device=DEV)
     logits_d, _ = decode_step(cfg, params, tok, dense, poss, rows=rows)
     with unmoved_counters(ops, "reference"):
@@ -3424,6 +3461,277 @@ def train_phases(torch, F, ARCHS, init_model, ops, ref, smi, gmm_checked):
     return kernels, runs
 
 
+# -------------------------------------------------------------- SPMD
+#: spmd-serve: internlm2's rules are those of its decode cell
+SPMD_SERVE_SHAPE = "decode_32k"
+#: dryrun: (arch, shape, multi-pod) cells of ``repro_torch.launch.dryrun``,
+#: run at once, each in its own process, within DRYRUN_TIMEOUT_S
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False),
+                ("granite-moe-3b-a800m", "decode_32k", False),
+                ("granite-moe-3b-a800m", "train_4k", True))
+DRYRUN_TIMEOUT_S = 240
+
+
+def placement_summary(placed):
+    """{placements: leaves} over a tree of DTensors."""
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for d in tree_leaves(placed):
+        key = ",".join(str(p) for p in d.placements)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def carry(torch, params, rules):
+    """``params`` carried to the host and back onto ``rules.mesh``
+    through ``elastic_reshard``: (the DTensors' local tensors, the
+    placements' summary).  Every local tensor is checked bit-equal to
+    its source leaf."""
+    from repro_torch.dist.fault import elastic_reshard
+    from repro_torch.tree import tree_leaves, tree_map
+
+    placed = elastic_reshard(
+        tree_map(lambda t: t.to("cpu", copy=True), params), rules)
+    local = tree_map(lambda d: d.to_local(), placed)
+    for a, b in zip(tree_leaves(local), tree_leaves(params)):
+        check(a.device == b.device and torch.equal(a, b),
+              "spmd: a leaf changed on its way through elastic_reshard")
+    return local, placement_summary(placed)
+
+
+def _rules_or_none(rules):
+    from repro_torch.dist.sharding import use_rules
+
+    return contextlib.nullcontext() if rules is None else use_rules(rules)
+
+
+def spmd_train_run(torch, ops, cfg, params, batches, rules):
+    """GRANITE_TRAIN_STEPS steps of ``make_train_step`` (TRAIN_MICRO
+    microbatches) from ``params`` (updated in place), inside
+    ``use_rules(rules)`` unless ``rules`` is None, with the launch
+    counters zeroed just before and read just after.  Returns (params,
+    opt state, losses, grad norms, launches)."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    step = make_train_step(cfg, adamw.AdamWConfig(
+        warmup_steps=1, total_steps=GRANITE_TRAIN_STEPS),
+        microbatches=TRAIN_MICRO)
+    opt = adamw.init(params)
+    ops.reset_launch_counts()
+    losses, norms = [], []
+    with _rules_or_none(rules):
+        for batch in batches:
+            params, opt, m = step(params, opt, dict(batch))
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    return (params, opt, losses, norms,
+            {fn.__name__: fn.launches for fn in ops.WRAPPERS})
+
+
+def spmd_train(torch, ARCHS, init_model, ops, mesh):
+    """granite-moe-3b-a800m at full width, GRANITE_TRAIN_LAYERS layers,
+    carried onto ``mesh`` through ``elastic_reshard`` under its
+    train_4k rules, trained GRANITE_TRAIN_STEPS steps inside
+    ``use_rules`` on the local tensors, and from the same parameters
+    with no rules just before and just after (so the rules run's seconds
+    sit between two plain runs'): losses, grad norms, every parameter and
+    moment leaf bit-equal to each plain run's, launches as
+    train-granite's and equal."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.data.pipeline import DataConfig, _host_batch
+    from repro_torch.dist.presets import arch_overrides
+    from repro_torch.dist.sharding import make_rules
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(ARCHS["granite-moe-3b-a800m"],
+                              n_layers=GRANITE_TRAIN_LAYERS,
+                              pattern_repeats=None)
+    rules = make_rules(mesh, overrides=arch_overrides(cfg, mesh,
+                                                      SHAPES["train_4k"]))
+    free_memory(torch)
+    params = init_params(torch, cfg, init_model)
+    local, summary = carry(torch, params, rules)
+    after = tree_map(torch.clone, params)
+    batches = [{k: torch.from_numpy(v).to(DEV) for k, v in _host_batch(
+        cfg, SHAPES["train_4k"], DataConfig(seed=SEED), step,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ).items()}
+        for step in range(GRANITE_TRAIN_STEPS)]
+    runs, seconds = [], []
+    for p, r in ((params, None), (local, rules), (after, None)):
+        t0 = time.perf_counter()
+        runs.append(spmd_train_run(torch, ops, cfg, p, batches, r))
+        seconds.append(time.perf_counter() - t0)
+    ruled = runs[1]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+           "steps": GRANITE_TRAIN_STEPS, "placements": summary,
+           "losses": [x.item() for x in ruled[2]],
+           "grad_norms": [x.item() for x in ruled[3]],
+           "rules_s": seconds[1], "plain_s": [seconds[0], seconds[2]],
+           "launches": {"rules": ruled[4], "plain": runs[0][4],
+                        "plain_after": runs[2][4]}}
+    check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
+          "spmd train: a non-finite loss or grad norm")
+    n_leaves = 3 * len(tree_leaves(params)) + 1
+    out["leaves_bit_equal"] = []
+    for plain in (runs[0], runs[2]):
+        for what, i in (("loss", 2), ("grad norm", 3)):
+            check(all(torch.equal(a, b) for a, b in zip(ruled[i], plain[i])),
+                  f"spmd train: the {what}es under rules and without differ")
+        leaves = list(zip(tree_leaves(ruled[:2]), tree_leaves(plain[:2])))
+        check(len(leaves) == n_leaves,
+              f"spmd train: {len(leaves)} parameter and moment leaves")
+        same = sum(bool(torch.equal(a, b)) for a, b in leaves)
+        out["leaves_bit_equal"].append([same, len(leaves)])
+        check(same == len(leaves), f"spmd train: {len(leaves) - same} of "
+              f"{len(leaves)} parameter and moment leaves differ with rules")
+    for label, la in out["launches"].items():
+        check_train_launches({"launches": la}, cfg.n_layers, cfg.n_layers,
+                             GRANITE_TRAIN_STEPS, TRAIN_MICRO,
+                             f"spmd train ({label})")
+    del params, local, after, runs, ruled, batches
+    free_memory(torch)
+    return out
+
+
+def spmd_serve(torch, ARCHS, init_model, ops, mesh):
+    """internlm2-1.8b at full width, carried onto ``mesh`` under its
+    SPMD_SERVE_SHAPE rules: the reference phase's prefills (K3) and paged
+    decode step (K1) inside ``use_rules`` on the local tensors, and again
+    on the parameters with no rules, each from fresh caches: prefill and
+    decode logits bit-equal, K3 and K1 launched once per layer of each
+    call and equally."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.dist.presets import arch_overrides
+    from repro_torch.dist.sharding import make_rules
+    from repro_torch.models import decode_step_paged
+
+    cfg = ARCHS["internlm2-1.8b"]
+    rules = make_rules(mesh, overrides=arch_overrides(
+        cfg, mesh, SHAPES[SPMD_SERVE_SHAPE]))
+    free_memory(torch)
+    params = init_params(torch, cfg, init_model)
+    local, summary = carry(torch, params, rules)
+    runs = {}
+    for label, p, r in (("rules", local, rules), ("plain", params, None)):
+        ops.reset_launch_counts()
+        with _rules_or_none(r):
+            lens, _, _, prefills, args, kwargs = paged_step_batch(
+                torch, cfg, p)
+            logits, _ = decode_step_paged(cfg, p, *args, **kwargs)
+        torch.cuda.synchronize()
+        runs[label] = (prefills, logits,
+                       {fn.__name__: fn.launches for fn in ops.WRAPPERS})
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "rules_shape":
+           SPMD_SERVE_SHAPE, "prompts": lens, "placements": summary,
+           "launches": {k: v[2] for k, v in runs.items()}}
+    (pre_r, dec_r, la_r), (pre_p, dec_p, la_p) = runs["rules"], runs["plain"]
+    check(all(torch.equal(a, b) for a, b in zip(pre_r, pre_p)),
+          "spmd serve: prefill logits differ with rules")
+    check(torch.equal(dec_r, dec_p),
+          "spmd serve: paged decode logits differ with rules")
+    check(bool(torch.isfinite(dec_r).all()), "spmd serve: non-finite logits")
+    n = cfg.n_layers
+    for label, la in (("rules", la_r), ("plain", la_p)):
+        want = {"flash_attention": n * len(lens), "paged_decode_attention": n}
+        for name, k in want.items():
+            check(la[name] == k, f"spmd serve ({label}): {name} launched "
+                  f"{la[name]} times, predicted {k}")
+    check(la_r == la_p, f"spmd serve: launches {la_r} with rules, {la_p} "
+          "without")
+    del params, local, runs
+    free_memory(torch)
+    return out
+
+
+def spmd_phase(torch, ARCHS, init_model, ops, smi):
+    """The ``spmd`` phase: a one-card ("data", "model") mesh from
+    ``make_debug_mesh`` over a one-rank group, training (spmd_train) and
+    serving (spmd_serve) with the rules active against without; the
+    group is destroyed after.  Emits the phase's line; returns the five
+    runs' launches, for the kernels line."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import destroy_mesh_group, make_debug_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_debug_mesh(DEV)
+    try:
+        backend = dist.get_backend()
+        train = spmd_train(torch, ARCHS, init_model, ops, mesh)
+        serve = spmd_serve(torch, ARCHS, init_model, ops, mesh)
+    finally:
+        destroy_mesh_group()
+    emit({"phase": "spmd", "mesh": {
+        "shape": list(mesh.shape), "names": list(mesh.mesh_dim_names),
+        "device": mesh.device_type, "backend": backend},
+        "train": train, "serve": serve,
+        "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    return [{"launches": la} for run in (train, serve)
+            for la in run["launches"].values()]
+
+
+def dryrun_phase(torch, smi, out_dir=None):
+    """The ``dryrun`` phase: ``python -m repro_torch.launch.dryrun`` on
+    this machine's torch for each of DRYRUN_CELLS, all at once, each in
+    its own process, over the fake process group of the production
+    meshes (a check without compute, on the host: no card is used).
+    Each must exit 0 and its record read back without an error."""
+    import os
+    import shutil
+
+    out_dir = Path(out_dir or ROOT / "build" / "chip_dryrun")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    procs = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(out_dir)]
+        if multi_pod:
+            cmd.append("--multi-pod")
+        procs.append(subprocess.Popen(
+            cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    cells = []
+    try:
+        for (arch, shape, multi_pod), proc in zip(DRYRUN_CELLS, procs):
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                log, _ = proc.communicate(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                log, _ = proc.communicate()
+            mesh = "2x16x16" if multi_pod else "16x16"
+            path = out_dir / f"{arch}__{shape}__{mesh}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {}
+            cells.append({"arch": arch, "shape": shape, "mesh": mesh,
+                          "rc": proc.returncode, "record": rec,
+                          "log": log.strip().splitlines()[-2:]})
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    emit({"phase": "dryrun", "mesh": "fake", "torch": torch.__version__,
+          "cells": cells, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    for c in cells:
+        what = f"dryrun {c['arch']} {c['shape']} {c['mesh']}"
+        check(c["rc"] == 0, f"{what}: exit {c['rc']}: {c['log']}")
+        rec = c["record"]
+        check("error" not in rec and rec.get("mesh") == c["mesh"]
+              and rec.get("cost", {}).get("flops", 0) > 0
+              and rec.get("memory", {}).get("argument_size_in_bytes", 0) > 0,
+              f"{what}: record {rec}")
+    return cells
+
+
 def _map_tensors(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tensors(v, fn) for k, v in tree.items()}
@@ -3437,12 +3745,13 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
-        "--only", nargs="+", choices=("kernels", "reference", "train"),
+        "--only", nargs="+",
+        choices=("kernels", "reference", "train", "spmd"),
         help="run only these phases after the build: every kernel phase, "
-             "internlm2's and gemma3's reference phases, or the training "
-             "phases; prints no kernels or result line (to hold another "
-             "tree's package, such as a parent commit's, to this script's "
-             "inputs and checks)")
+             "internlm2's and gemma3's reference phases, the training "
+             "phases, or the spmd and dryrun phases; prints no kernels or "
+             "result line (to hold another tree's package, such as a "
+             "parent commit's, to this script's inputs and checks)")
     only = set(ap.parse_args(argv).only or ())
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -3506,6 +3815,9 @@ def main(argv=None) -> int:
         if "train" in only:
             train_phases(torch, F, ARCHS, init_model, ops, ref, smi,
                          gmm_checked if "kernels" in only else set())
+        if "spmd" in only:
+            spmd_phase(torch, ARCHS, init_model, ops, smi)
+            dryrun_phase(torch, smi)
         return 0
 
     simulator_phase()
@@ -3559,6 +3871,8 @@ def main(argv=None) -> int:
     train_kernels, train_runs = train_phases(
         torch, F, ARCHS, init_model, ops, ref, smi, gmm_checked)
     kres.update(train_kernels)
+    spmd_runs = spmd_phase(torch, ARCHS, init_model, ops, smi)
+    dryrun_phase(torch, smi)
     emit_ssd_lines(torch, ssd_lines)
 
     replaces = {
@@ -3587,9 +3901,10 @@ def main(argv=None) -> int:
         "ssd_scan": "ssd_scan.cu",
         "ssd_scan_bwd": "ssd_scan_bwd.cu",
     }
-    # launches on the main paths: the sum over the serving runs and the
-    # training runs, each counted from zero
-    runs = (f32, i8, cluster, g3, moe, *ssm_runs, *zoo, *train_runs)
+    # launches on the main paths: the sum over the serving runs, the
+    # training runs and the spmd runs, each counted from zero
+    runs = (f32, i8, cluster, g3, moe, *ssm_runs, *zoo, *train_runs,
+            *spmd_runs)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{source[name]}",

@@ -8,6 +8,8 @@ Two pieces a trainer or the serving cluster composes:
 * :class:`RestartManager` — resume from the newest checkpoint in a
   directory, with a bounded-retry exponential-backoff policy for
   crash/preemption loops.
+* :func:`elastic_reshard` — place a restored host tree onto whatever mesh
+  the current rules describe.
 
 The serving cluster composes the same pieces (DESIGN.md §8, §11):
 :class:`StragglerDetector` runs over per-replica tick service times to
@@ -25,7 +27,11 @@ import statistics
 import time
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
+import torch
+
 from repro_torch.checkpoint.checkpointing import latest_step_path, restore
+from repro_torch.dist.sharding import Rules, path_str
+from repro_torch.tree import tree_map_with_path
 
 PyTree = Any
 log = logging.getLogger(__name__)
@@ -161,3 +167,22 @@ class RestartManager:
     def record_heartbeat(self, step: int) -> None:
         self.last_heartbeat = (step, time.monotonic())
 
+
+def elastic_reshard(tree: PyTree, rules: Rules) -> PyTree:
+    """Place a (host-side) tree onto ``rules.mesh`` under the param rules.
+
+    The checkpoint format stores plain host arrays, so restoring onto a
+    different mesh shape is just a fresh placement decision: every leaf
+    becomes a ``DTensor`` (``distribute_tensor``, which moves it to the
+    mesh's device) with the placements its path resolves to under the
+    *current* rules (unknown paths → replicated).
+    """
+    from torch.distributed.tensor import distribute_tensor
+
+    def place(key_path, leaf):
+        t = torch.as_tensor(leaf)
+        spec = rules.spec_for_path(path_str(key_path), t.dim())
+        spec = rules.fit(spec, tuple(t.shape))  # the new mesh may not divide
+        return distribute_tensor(t, rules.mesh, rules.placements(spec))
+
+    return tree_map_with_path(place, tree)

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..dist.sharding import shard
 from ..kernels import ops as kernel_ops
 from ..kernels.ref import NEG_INF
 from .layers import (
@@ -56,6 +57,9 @@ def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor):
     q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
     k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
     v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = shard(q, ("batch", "heads", "seq", None))
+    k = shard(k, ("batch", "kv_heads", "seq", None))
+    v = shard(v, ("batch", "kv_heads", "seq", None))
     return q, k, v
 
 
@@ -375,9 +379,14 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     cap = _capacity(cfg, s) if s > 1 else _decode_capacity(cfg, x.shape[1])
     groups, n = gates.shape[0], gates.shape[1]
     xe, slot, tok, gate_w, keep = moe_dispatch_row(x, gates, moe.top_k, cap)
+    # the groups fold into the capacity axis: where they are the batch's
+    # sequences (or rows), that axis carries JAX's "batch" pin
+    rows_axis = None if one_group else "batch"
+    xe = shard(xe, ("expert", rows_axis, None))
     h_gate = kernel_ops.grouped_matmul(xe, p["gate"])
     h_up = kernel_ops.grouped_matmul(xe, p["up"])
     h = F.silu(h_gate.float()).to(x.dtype) * h_up
+    h = shard(h, ("expert", rows_axis, "expert_mlp"))
     ye = kernel_ops.grouped_matmul(h, p["down"]).reshape(-1, d)
     # combine, token by token (each token has k entries): a dropped entry
     # reads slot 0 of its group with weight 0

@@ -15,6 +15,7 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import shard
 from ..kernels import ops as kernel_ops
 from ..kernels.ref import NEG_INF, repeat_kv
 
@@ -196,4 +197,5 @@ def apply_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     gate = torch.matmul(x, params["gate"])
     up = torch.matmul(x, params["up"])
     h = F.silu(gate.float()).to(x.dtype) * up
+    h = shard(h, ("batch", "seq", "mlp"))
     return torch.matmul(h, params["down"])

@@ -42,6 +42,7 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from ..configs.base import ArchConfig
+from ..dist.sharding import shard
 from ..kernels import ops as kernel_ops
 from ..tree import tree_leaves, tree_map
 from . import blocks
@@ -328,13 +329,15 @@ def _index(tree: PyTree, r: int) -> PyTree:
 
 # ----------------------------------------------------------------- forward
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["tokens"][tokens.long()]
+    x = params["embed"]["tokens"][tokens.long()]
+    return shard(x, ("batch", "seq", "embed"))
 
 
 def _unembed(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     """Final norm and the f32 logits [B, S, V]."""
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return torch.matmul(x.float(), unembed_weight(cfg, params).float())
+    logits = torch.matmul(x.float(), unembed_weight(cfg, params).float())
+    return shard(logits, ("batch", "seq", "vocab"))
 
 
 def _ffn(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
@@ -375,6 +378,7 @@ def encoder_forward(cfg: ArchConfig, params, frames: torch.Tensor, *,
     package checkpoints its scanned layer."""
     enc = params["encoder"]
     x = _project(frames, params["audio_proj"]).to(params["audio_proj"].dtype)
+    x = shard(x, ("batch", "seq", "embed"))
 
     def layer(h, p):
         h = h + blocks.attention_forward(
@@ -456,7 +460,8 @@ def _apply_block_full(
         a, cache = out if want_cache else (out, None)
         x = x + a
         x = x + _ffn(p, cfg, x)
-    return bf16_grad(x), (cache if want_cache else None)
+    x = shard(bf16_grad(x), ("batch", "seq", "embed"))
+    return x, (cache if want_cache else None)
 
 
 def _dots_saved(ctx, op, *args, **kwargs):
@@ -585,7 +590,7 @@ def _front(cfg: ArchConfig, params, tokens: torch.Tensor,
     if cfg.frontend == "vision_stub":
         vis = _project(_extra(cfg, extra, "patch_embeds"),
                        params["vision_proj"]).to(x.dtype)
-        x = torch.cat([vis, x], dim=1)
+        x = shard(torch.cat([vis, x], dim=1), ("batch", "seq", "embed"))
     if cfg.enc_layers:
         enc_out = encoder_forward(cfg, params,
                                   _extra(cfg, extra, "frame_embeds"),
@@ -626,7 +631,8 @@ def forward(
 ) -> torch.Tensor:
     """Train-mode forward → f32 logits [B, S(+vision), vocab]."""
     x = forward_hidden(cfg, params, tokens, extra=extra, remat=remat)
-    return torch.matmul(x.float(), unembed_weight(cfg, params).float())
+    logits = torch.matmul(x.float(), unembed_weight(cfg, params).float())
+    return shard(logits, ("batch", "seq", "vocab"))
 
 
 def prefill(
@@ -719,6 +725,7 @@ def decode_step(
     pos: Union[int, torch.Tensor],  # int, or [B] per-row positions
     *,
     rows: Optional[torch.Tensor] = None,
+    per_row: bool = True,
 ):
     """One decode step; returns (logits [B, 1, V], caches).
 
@@ -729,9 +736,10 @@ def decode_step(
     decoder block of the unit cross-attends to it.  An MoE FFN dispatches
     each row as its own capacity group, as the JAX engine's per-slot
     vmapped step does (this is the engine's dense and continuation
-    step), so rows never take capacity from one another;
-    ``repro.models.decode_step`` on a batch dispatches it as one group,
-    as :func:`decode_step_paged` does here.
+    step), so rows never take capacity from one another; with
+    ``per_row=False`` it dispatches the batch as one group, as
+    ``repro.models.decode_step`` on a batch and :func:`decode_step_paged`
+    do (the dry-run's decode step).
     """
     _check_stack(cfg)
     x = _embed(params, tokens)
@@ -762,7 +770,7 @@ def decode_step(
                     window=_window(cfg, btype), rows=rows,
                 )
             x = x + a
-            x = x + _ffn(p, cfg, x, per_row=True)
+            x = x + _ffn(p, cfg, x, per_row=per_row)
         if cross_kv is not None and pc is not None:
             x = _cross_attend(pc, cfg, x, cross_kv)
     return _unembed(cfg, params, x), caches

@@ -1,4 +1,21 @@
-"""Roofline cost of one serving-engine tick on an NVIDIA H100.
+"""Roofline analysis on an NVIDIA H100: the dry-run cells and the
+serving engine's tick cost.
+
+Per (arch × shape × mesh) cell, from the port's dry-run record
+(``repro_torch.launch.dryrun``):
+
+    compute    = analytic useful FLOPs (remat-adjusted) / chips / peak
+    memory     = analytic HBM traffic / chips / HBM bandwidth
+    collective = collective bytes per device / NVLink bandwidth
+
+MODEL_FLOPS uses 6·N·T (train) / 2·N·T (inference) with N = active
+params, plus the causal-attention term; the ratio MODEL_FLOPS / (traced
+FLOPs × chips) measures how much of the traced step's compute is
+"useful" (remat recompute, dispatch overheads and padding show up
+here).  The traced FLOPs are counted by ``FlopCounterMode`` on fake
+tensors, not measured.  The port's records carry no collective bytes
+(``null``): their term is then ``None``, shown as "–", and the
+bottleneck and step time use the terms that exist.
 
 The constants are the H100 SXM part's (NVIDIA's data sheet, dense rates
 without sparsity, 700 W): ``nvidia-smi`` names it "NVIDIA H100 80GB
@@ -8,12 +25,100 @@ HBM3".  The PCIe part is slower on every term (756 TFLOP/s bf16,
 
 from __future__ import annotations
 
+import glob
+import json
+import os
 from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+from ..configs import ARCHS, SHAPES
 
 PEAK_FLOPS = 989e12  # bf16 dense tensor-core FLOP/s
 FP32_PEAK_FLOPS = 67e12  # f32 FLOP/s on the CUDA cores, outside the tensor cores
 HBM_BW = 3.35e12  # HBM3 bytes/s
 PCIE_BW = 64e9  # bytes/s host link, PCIe Gen5 x16 — KV offload/promote path
+NVLINK_BW = 450e9  # bytes/s each way, NVLink 4 (900 GB/s both ways)
+
+CHIPS = {"16x16": 256, "2x16x16": 512}
+
+
+def model_flops(arch: str, shape_name: str) -> float:
+    """Analytic useful FLOPs for the whole step (global, all chips)."""
+    cfg = ARCHS[arch]
+    shape = SHAPES[shape_name]
+    n_active = cfg.active_param_count()
+    b, s = shape.global_batch, shape.seq_len
+
+    counts: Dict[str, int] = {}
+    for blk in (
+        list(cfg.block_pattern) * cfg.resolved_pattern_repeats
+        + list(cfg.suffix_blocks)
+    ):
+        counts[blk] = counts.get(blk, 0) + 1
+    full_attn = counts.get("attn", 0) + counts.get("shared_attn", 0)
+    local_attn = counts.get("local_attn", 0)
+    qk_dim = cfg.n_heads * cfg.head_dim if cfg.n_heads else 0
+
+    if shape.kind == "train":
+        tokens = b * s
+        flops = 6.0 * n_active * tokens
+        # causal attention: fwd 2·(QK+PV)·0.5, bwd ×2 → 6·S²·qk·0.5
+        flops += 6.0 * full_attn * b * s * s * qk_dim
+        flops += 6.0 * local_attn * b * s * min(s, cfg.sliding_window) * qk_dim
+        return flops
+    if shape.kind == "prefill":
+        tokens = b * s
+        flops = 2.0 * n_active * tokens
+        flops += 2.0 * full_attn * b * s * s * qk_dim
+        flops += 2.0 * local_attn * b * s * min(s, cfg.sliding_window) * qk_dim
+        return flops
+    # decode: one token over a seq_len cache
+    flops = 2.0 * n_active * b
+    flops += 4.0 * full_attn * b * s * qk_dim  # QK + PV over the cache
+    flops += 4.0 * local_attn * b * min(s, cfg.sliding_window) * qk_dim
+    if cfg.ssm is not None and counts.get("mamba"):
+        ssm = cfg.ssm
+        flops += (
+            4.0 * counts["mamba"] * b
+            * ssm.n_heads(cfg.d_model) * ssm.head_dim * ssm.d_state
+        )
+    return flops
+
+
+def memory_traffic_bytes(arch: str, shape_name: str) -> float:
+    """Analytic minimum HBM traffic per step (global bytes):
+
+      decode : weights once per step + whole KV cache + constant states
+      prefill: weights + KV written + activations (8 B/elem/layer envelope)
+      train  : params+opt traffic (20·N: bf16 p r/w, f32 m,v r/w, grads)
+               + activations 24 B/elem/layer (fwd save + bwd touch, bf16)
+    """
+    from ..serve.kv_cache import constant_state_bytes, kv_bytes_per_token
+
+    cfg = ARCHS[arch]
+    shape = SHAPES[shape_name]
+    b, s = shape.global_batch, shape.seq_len
+    n_total = cfg.param_count()
+    n_active = cfg.active_param_count()
+    kv_tok = kv_bytes_per_token(cfg)
+    states = constant_state_bytes(cfg)
+    d, L = cfg.d_model, cfg.n_layers
+
+    if shape.kind == "decode":
+        weights = 2.0 * n_total  # bf16; all experts touched at batch≥128
+        kv = b * (kv_tok * s + states)
+        acts = b * L * d * 24.0
+        return weights + kv + acts
+    if shape.kind == "prefill":
+        tokens = b * s
+        weights = 2.0 * n_active  # streamed once (batched)
+        kv_write = b * (kv_tok * s + states)
+        acts = tokens * L * d * 8.0
+        return weights + kv_write + acts
+    tokens = b * s
+    opt_traffic = 20.0 * n_total
+    acts = tokens * L * d * 24.0
+    return opt_traffic + acts
 
 
 @dataclass(frozen=True)
@@ -82,3 +187,131 @@ def tick_cost_model(cfg, page_tokens: int = 16) -> ServingTickCost:
         act_bytes_per_token=cfg.n_layers * cfg.d_model * 24.0,
         page_bytes=float(kv_tok * page_tokens),
     )
+
+
+@dataclass
+class RooflineCell:
+    arch: str
+    shape: str
+    mesh: str
+    compute_s: float  # analytic useful compute (remat-adjusted) / peak
+    memory_s: float  # analytic traffic / HBM bw
+    collective_s: Optional[float]  # collective bytes / NVLink; None: unknown
+    model_flops: float
+    traced_flops_global: float
+    traced_compute_s: float  # counted FLOPs per device / peak
+    temp_bytes: Optional[int]
+    collectives: Optional[Dict[str, dict]]
+
+    def _terms(self) -> Dict[str, float]:
+        terms = {"compute": self.compute_s, "memory": self.memory_s}
+        if self.collective_s is not None:
+            terms["collective"] = self.collective_s
+        return terms
+
+    @property
+    def bottleneck(self) -> str:
+        terms = self._terms()
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_s(self) -> float:
+        """Roofline step-time bound: no-overlap = max of the terms that
+        exist (each unit is independently saturable)."""
+        return max(self._terms().values())
+
+    @property
+    def useful_fraction(self) -> float:
+        if self.traced_flops_global <= 0:
+            return 0.0
+        return self.model_flops / self.traced_flops_global
+
+    @property
+    def roofline_fraction(self) -> float:
+        """Fraction of the compute roofline achieved at the step-time bound:
+        (useful FLOPs / chips / step_time) / peak — the §Perf score."""
+        chips = CHIPS[self.mesh]
+        if self.step_time_s <= 0:
+            return 0.0
+        return (self.model_flops / chips / self.step_time_s) / PEAK_FLOPS
+
+
+def load_cell(record: dict) -> Optional[RooflineCell]:
+    if record.get("skipped") or "error" in record:
+        return None
+    flops_dev = record.get("cost", {}).get("flops", 0.0)
+    coll = record.get("collectives")
+    chips = CHIPS[record["mesh"]]
+    arch, shape = record["arch"], record["shape"]
+    mflops = model_flops(arch, shape)
+    remat = 4.0 / 3.0 if record.get("kind") == "train" else 1.0
+    traffic = memory_traffic_bytes(arch, shape)
+    return RooflineCell(
+        arch=arch,
+        shape=shape,
+        mesh=record["mesh"],
+        compute_s=mflops * remat / chips / PEAK_FLOPS,
+        memory_s=traffic / chips / HBM_BW,
+        collective_s=(None if coll is None else
+                      sum(v.get("bytes", 0) for v in coll.values()) / NVLINK_BW),
+        model_flops=mflops,
+        traced_flops_global=flops_dev * chips,
+        traced_compute_s=flops_dev / PEAK_FLOPS,
+        temp_bytes=record.get("memory", {}).get("temp_size_in_bytes"),
+        collectives=coll,
+    )
+
+
+def load_all(dryrun_dir: str, mesh: str = "16x16") -> List[RooflineCell]:
+    cells = []
+    for path in sorted(glob.glob(os.path.join(dryrun_dir, "*.json"))):
+        with open(path) as f:
+            rec = json.load(f)
+        if rec.get("mesh") != mesh:
+            continue
+        cell = load_cell(rec)
+        if cell is not None:
+            cells.append(cell)
+    return cells
+
+
+def _sci(x: Optional[float], fmt: str = ".3e") -> str:
+    return "–" if x is None else format(x, fmt)
+
+
+def markdown_table(cells: List[RooflineCell]) -> str:
+    hdr = (
+        "| arch | shape | compute s | memory s | collective s | bottleneck "
+        "| roofline frac | traced compute s | temp GiB/dev |\n"
+        "|---|---|---|---|---|---|---|---|---|\n"
+    )
+    rows = []
+    for c in cells:
+        temp = f"{c.temp_bytes / 2**30:.1f}" if c.temp_bytes else "–"
+        rows.append(
+            f"| {c.arch} | {c.shape} | {c.compute_s:.3e} | {c.memory_s:.3e} "
+            f"| {_sci(c.collective_s)} | **{c.bottleneck}** "
+            f"| {c.roofline_fraction:.3f} "
+            f"| {c.traced_compute_s:.2e} | {temp} |"
+        )
+    return hdr + "\n".join(rows) + "\n"
+
+
+def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dir", default="experiments/dryrun_torch")
+    ap.add_argument("--mesh", default="16x16")
+    args = ap.parse_args()
+    cells = load_all(args.dir, args.mesh)
+    print(markdown_table(cells))
+    worst = sorted(cells, key=lambda c: c.roofline_fraction)[:3]
+    coll = sorted((c for c in cells if c.collective_s is not None),
+                  key=lambda c: -c.collective_s)[:3]
+    print("\nworst roofline fraction:", [(c.arch, c.shape) for c in worst])
+    print("most collective-bound:", [(c.arch, c.shape) for c in coll])
+
+
+if __name__ == "__main__":
+    main()

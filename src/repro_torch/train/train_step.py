@@ -5,9 +5,7 @@ JAX's step is a pure jitted function whose microbatches run as a
 ``lax.scan``; here the step is eager: the microbatches run as a loop,
 each one's loss differentiated by ``torch.autograd.grad`` with respect
 to every parameter leaf (remat applies per unit of layers inside the
-model), their gradients summed in f32.  JAX's ``shard()`` pins of the
-batch to the data axis are dropped: they are a no-op without sharding
-rules, and the rules come with the SPMD slice (ROADMAP Queue 1 item 12).
+model), their gradients summed in f32.
 """
 
 from __future__ import annotations
@@ -18,6 +16,7 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from ..configs.base import ArchConfig
+from ..dist.sharding import shard
 from ..models.transformer import forward, forward_hidden, unembed_weight
 from ..optim import adamw
 from ..tree import tree_flatten, tree_unflatten
@@ -110,6 +109,14 @@ def value_and_grad(cfg: ArchConfig, params, batch, *,
     return loss.detach(), tree_unflatten(treedef, grads)
 
 
+def pin_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Pin every batch entry's leading axis to the data axis before any
+    compute (each entry is returned as it is unless a
+    ``repro_torch.dist.sharding`` rules context is active)."""
+    return {k: shard(v, ("batch",) + (None,) * (v.dim() - 1))
+            for k, v in batch.items()}
+
+
 def make_train_step(
     cfg: ArchConfig,
     opt_cfg: adamw.AdamWConfig,
@@ -125,6 +132,7 @@ def make_train_step(
     count.  The parameters and moments are updated in place."""
 
     def train_step(params, opt_state: adamw.AdamWState, batch):
+        batch = pin_batch(batch)
         if microbatches == 1:
             loss, grads = value_and_grad(cfg, params, batch, remat=remat,
                                          loss_chunk=loss_chunk)

@@ -30,7 +30,7 @@ from ..dist.fault import RestartManager, StragglerDetector
 from ..models import init_model
 from ..models.transformer import resolve_device
 from ..optim import adamw
-from .train_step import make_train_step, value_and_grad
+from .train_step import make_train_step, pin_batch, value_and_grad
 
 
 @dataclass
@@ -109,6 +109,7 @@ class Trainer:
             # grads → EF-int8 → optimizer, one microbatch, as the JAX
             # package's compressed step
             def step_with_compression(params, opt_state, ef, batch):
+                batch = pin_batch(batch)  # as make_train_step pins it
                 loss, grads = value_and_grad(self.cfg, params, batch,
                                              remat=self.tcfg.remat)
                 grads, ef, cerr = compression.compress_grads(grads, ef)

@@ -13,7 +13,10 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
-__all__ = ["tree_flatten", "tree_leaves", "tree_map", "tree_unflatten"]
+__all__ = [
+    "tree_flatten", "tree_leaves", "tree_map", "tree_map_with_path",
+    "tree_unflatten",
+]
 
 #: the structure :func:`tree_flatten` returns: ``"*"`` for a leaf,
 #: ``None`` for ``None``, ``(dict, keys, children)`` and
@@ -85,3 +88,23 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return _rebuild(type(tree), [tree_map(fn, t) for t in tree])
     return fn(tree)
+
+
+def tree_map_with_path(fn: Callable, tree: Any) -> Any:
+    """``fn(path, leaf)`` applied to every leaf, as :func:`tree_map`
+    applies ``fn(leaf)``.  ``path`` is the tuple of keys from the root:
+    dict keys, list and tuple indices, and a NamedTuple's field names
+    (JAX's ``DictKey``, ``SequenceKey`` and ``GetAttrKey``)."""
+    return _map_with_path(fn, tree, ())
+
+
+def _map_with_path(fn: Callable, x: Any, path: Tuple) -> Any:
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        keys = getattr(x, "_fields", None) or range(len(x))
+        return _rebuild(type(x), [_map_with_path(fn, t, path + (k,))
+                                  for k, t in zip(keys, x)])
+    return fn(path, x)

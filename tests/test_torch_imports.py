@@ -78,6 +78,13 @@ def test_every_module_is_listed():
         "repro_torch.data.pipeline",
         "repro_torch.launch.train",
         "repro_torch.dist.compression",
+        "repro_torch.dist.sharding",
+        "repro_torch.dist.presets",
+        "repro_torch.launch.mesh",
+        "repro_torch.launch.specs",
+        "repro_torch.launch.dryrun",
+        "repro_torch.roofline",
+        "repro_torch.roofline.analysis",
     ):
         assert expected in names
 
