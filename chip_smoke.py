@@ -178,10 +178,23 @@ Phases, each printing one JSON line (or one per kernel or run):
    machine's torch for DRYRUN_CELLS (internlm2-1.8b train_4k and
    granite-moe decode_32k on 16×16, granite-moe train_4k on 2×16×16),
    each in its own process over torch's fake process group: every cell
-   placed as DTensors on the fake mesh and its step traced on fake
-   tensors under ``FlopCounterMode``, a check without compute on the
-   host (``"mesh": "fake"``), as the JAX package's dry-run is.  Each must
-   exit 0 with its record read back.
+   placed as DTensors of fake local shards on the fake mesh and its
+   step run on them as the per-device program, a check without compute
+   on the host (``"mesh": "fake"``), as the JAX package's dry-run is.
+   Each must exit 0 with its record read back, carrying collectives and
+   temp memory (printed: bytes by kind, temp bytes).  Collective bytes
+   cannot be measured on one card: the line says so.
+18. ``dryrun-memory`` — the dry-run's memory count against the card:
+   spmd's train step (granite-moe, 4 layers, B 4 × S 2,048, 2
+   microbatches, remat) on the one-card NCCL mesh with the rules active,
+   inside ``ops.plain_on_card()`` (the plain versions, the ops the
+   dry-run counts), its peak ``torch.cuda.max_memory_allocated()`` less
+   the bytes allocated at the step's entry, against the dry-run of the
+   same cell on a fake 1×1 mesh: ``temp_size_in_bytes`` plus the new
+   outputs (``output_size_in_bytes`` less ``alias_size_in_bytes``, the
+   parameters and moments the step updates in place, allocated before
+   it), within DRYRUN_MEMORY_RTOL of the measured peak; and the same
+   step's peak through the kernels (printed, not checked).
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1.  Without a
@@ -189,7 +202,7 @@ CUDA device, or without the port's sources beside this file, it exits
 non-zero and prints no result.
 
 ``--only kernels`` (phase 3), ``--only reference`` (phase 7), ``--only
-train`` (phase 15) or ``--only spmd`` (phases 16 and 17), or several,
+train`` (phase 15) or ``--only spmd`` (phases 16 to 18), or several,
 stops after those phases and prints neither the kernels line nor the
 result line.  Copied into the root of
 another checkout, such as a parent commit's, the script so holds that
@@ -3470,6 +3483,12 @@ DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False),
                 ("granite-moe-3b-a800m", "decode_32k", False),
                 ("granite-moe-3b-a800m", "train_4k", True))
 DRYRUN_TIMEOUT_S = 240
+#: dryrun-memory: the most the dry-run's count of the step's peak above
+#: its entry may differ from the card's measured peak, relative to the
+#: measured peak (written before the first run: the allocator rounds
+#: each block up to 512 B and the CUDA sort, scatter and cuBLAS
+#: libraries take workspace the CPU count does not see)
+DRYRUN_MEMORY_RTOL = 0.10
 
 
 def placement_summary(placed):
@@ -3718,8 +3737,17 @@ def dryrun_phase(torch, smi, out_dir=None):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    for c in cells:
+        rec = c["record"]
+        c["collective_bytes"] = {k: v.get("bytes") for k, v in (
+            rec.get("collectives") or {}).items()}
+        c["temp_size_in_bytes"] = rec.get("memory", {}).get(
+            "temp_size_in_bytes")
     emit({"phase": "dryrun", "mesh": "fake", "torch": torch.__version__,
           "cells": cells, "seconds": time.perf_counter() - t0,
+          "collectives_measured": "no: one card has no collective to "
+                                  "measure; the bytes are counted on the "
+                                  "fake mesh",
           "nvidia_smi": smi})
     for c in cells:
         what = f"dryrun {c['arch']} {c['shape']} {c['mesh']}"
@@ -3729,7 +3757,109 @@ def dryrun_phase(torch, smi, out_dir=None):
               and rec.get("cost", {}).get("flops", 0) > 0
               and rec.get("memory", {}).get("argument_size_in_bytes", 0) > 0,
               f"{what}: record {rec}")
+        check(bool(rec.get("collectives"))
+              and isinstance(c["temp_size_in_bytes"], int)
+              and c["temp_size_in_bytes"] > 0,
+              f"{what}: no collectives or temp memory in {rec}")
     return cells
+
+
+def spmd_step_peak(torch, ops, cfg, params, batch, rules, plain):
+    """The peak above its entry of one train step of ``cfg``
+    (TRAIN_MICRO microbatches, remat) from ``params`` inside
+    ``use_rules(rules)``, through the plain versions (``plain``) or the
+    kernels: ``max_memory_allocated`` less ``memory_allocated`` at the
+    step's entry, the moments allocated before it."""
+    from repro_torch.dist.sharding import use_rules
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    step = make_train_step(cfg, adamw.AdamWConfig(
+        warmup_steps=1, total_steps=GRANITE_TRAIN_STEPS),
+        microbatches=TRAIN_MICRO)
+    opt = adamw.init(params)
+    free_memory(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    entry = torch.cuda.memory_allocated()
+    with use_rules(rules), (ops.plain_on_card() if plain
+                            else contextlib.nullcontext()):
+        _, _, m = step(params, opt, dict(batch))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - entry
+    check(math.isfinite(m["loss"].item()), "dryrun-memory: a non-finite loss")
+    del opt, m
+    return peak
+
+
+def dryrun_memory_phase(torch, ARCHS, init_model, ops, smi):
+    """The ``dryrun-memory`` phase: spmd's train step measured on the
+    card (the one-card NCCL mesh, rules active; the plain versions, then
+    the kernels), then counted by the dry-run on a fake 1×1 mesh; the
+    count within DRYRUN_MEMORY_RTOL of the plain step's measured peak."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, _host_batch
+    from repro_torch.dist.presets import arch_overrides
+    from repro_torch.dist.sharding import make_rules
+    from repro_torch.launch.dryrun import program_cell
+    from repro_torch.launch.mesh import (
+        destroy_mesh_group,
+        make_debug_mesh,
+        make_fake_mesh,
+    )
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(ARCHS["granite-moe-3b-a800m"],
+                              n_layers=GRANITE_TRAIN_LAYERS,
+                              pattern_repeats=None)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    peaks = {}
+    mesh = make_debug_mesh(DEV)
+    try:
+        rules = make_rules(mesh, overrides=arch_overrides(
+            cfg, mesh, SHAPES["train_4k"]))
+        free_memory(torch)
+        params = init_params(torch, cfg, init_model)
+        batch = {k: torch.from_numpy(v).to(DEV) for k, v in _host_batch(
+            cfg, SHAPES["train_4k"], DataConfig(seed=SEED), 0,
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ).items()}
+        for label, plain in (("plain", True), ("kernels", False)):
+            peaks[label] = spmd_step_peak(torch, ops, cfg, params, batch,
+                                          rules, plain)
+        del params, batch
+        free_memory(torch)
+    finally:
+        destroy_mesh_group()
+    fake = make_fake_mesh((1, 1))
+    try:
+        rules = make_rules(fake, overrides=arch_overrides(
+            cfg, fake, SHAPES["train_4k"]))
+        rec = program_cell(cfg, shape, fake, rules, rules,
+                           {"microbatches": TRAIN_MICRO})
+    finally:
+        destroy_mesh_group()
+    mem = rec["memory"]
+    counted = (mem["temp_size_in_bytes"] + mem["output_size_in_bytes"]
+               - mem["alias_size_in_bytes"])
+    measured = peaks["plain"]
+    rel = abs(counted - measured) / measured
+    emit({"phase": "dryrun-memory", "arch": cfg.name,
+          "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "microbatches": TRAIN_MICRO, "mesh": "1x1",
+          "measured_peak_bytes": measured,
+          "kernel_path_peak_bytes": peaks["kernels"],
+          "dryrun_memory": mem, "counted_peak_bytes": counted,
+          "rel_err": rel, "limit": DRYRUN_MEMORY_RTOL,
+          "dryrun_step_s": rec["compile_s"],
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    check(rel <= DRYRUN_MEMORY_RTOL,
+          f"dryrun-memory: the dry-run counts {counted} B above the step's "
+          f"entry, the card measured {measured} B ({rel:.3f} apart, limit "
+          f"{DRYRUN_MEMORY_RTOL})")
+    return rel
 
 
 def _map_tensors(tree, fn):
@@ -3818,6 +3948,7 @@ def main(argv=None) -> int:
         if "spmd" in only:
             spmd_phase(torch, ARCHS, init_model, ops, smi)
             dryrun_phase(torch, smi)
+            dryrun_memory_phase(torch, ARCHS, init_model, ops, smi)
         return 0
 
     simulator_phase()
@@ -3873,6 +4004,7 @@ def main(argv=None) -> int:
     kres.update(train_kernels)
     spmd_runs = spmd_phase(torch, ARCHS, init_model, ops, smi)
     dryrun_phase(torch, smi)
+    dryrun_memory_phase(torch, ARCHS, init_model, ops, smi)
     emit_ssd_lines(torch, ssd_lines)
 
     replaces = {

@@ -36,7 +36,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
-from ..tree import tree_map_with_path
+from ..tree import tree_map, tree_map_with_path
 
 PyTree = Any
 #: a logical axis resolves to one mesh axis, several (e.g. batch over
@@ -280,12 +280,25 @@ def current_rules() -> Optional[Rules]:
 
 @contextlib.contextmanager
 def use_rules(rules: Rules):
-    """Activate ``rules`` for :func:`shard` calls made in this context."""
+    """Activate ``rules`` for :func:`shard` calls made in this context.
+    A plain tensor that the step makes from nothing (positions, masks)
+    meets DTensors here as a replicated one: each device makes the same
+    (DTensor's ``implicit_replication``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
     token = _ACTIVE_RULES.set(rules)
     try:
-        yield rules
+        with implicit_replication():
+            yield rules
     finally:
         _ACTIVE_RULES.reset(token)
+
+
+def is_dtensor(x) -> bool:
+    """True for a ``DTensor``: the step runs as a per-device program."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
 
 
 def shard(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
@@ -295,14 +308,210 @@ def shard(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
     Under :func:`use_rules` every axis is resolved (an unknown name
     raises ``KeyError``); a ``DTensor`` is redistributed to the resolved
     placements, and a plain tensor, which one card holds whole, is
-    returned unchanged.
+    returned unchanged.  As the JAX package's in-graph constraints pad
+    where arguments must divide, a pin may split a dimension unevenly
+    (DTensor's ``torch.chunk`` blocks: the first device holds the
+    largest).
     """
     rules = _ACTIVE_RULES.get()
     if rules is None:
         return x
     entries = rules.entries(axes)  # resolves every axis: a typo raises
-    from torch.distributed.tensor import DTensor
-
-    if isinstance(x, DTensor):
-        return x.redistribute(rules.mesh, rules.placements(entries))
+    if is_dtensor(x):
+        return _pin(x, rules.mesh, rules.placements(entries))
     return x
+
+
+def _pin(x, mesh, placements):
+    """``x.redistribute(mesh, placements)``, and where ``x`` holds a sum
+    pending over a mesh dim (``Partial``), its gradient whole on that dim
+    (each device's addend takes the whole gradient: the all-reduce's
+    mirror is no collective, the reduce-scatter's an all-gather, as XLA
+    and Megatron place them), not a pending sum for a later operation
+    to resolve."""
+    from torch.distributed.tensor import Partial
+
+    if not any(isinstance(p, Partial) for p in x.placements):
+        return x.redistribute(mesh, placements)
+    return _Reduce.apply(x, mesh, tuple(placements))
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        from torch.distributed.tensor import Partial, Replicate
+
+        ctx.mesh = mesh
+        ctx.grad = tuple(Replicate() if isinstance(p, Partial) else p
+                         for p in x.placements)
+        return x.redistribute(mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.grad), None, None
+
+
+def split_heads(x: torch.Tensor, heads: int, axes: Sequence[Optional[str]]
+                ) -> torch.Tensor:
+    """[B, S, heads·hd] → [B, heads, S, hd], pinned at ``axes`` (one
+    logical axis per output dimension) fitted to the head count.
+
+    A DTensor is first redistributed so that its last dimension is split
+    over exactly the mesh axes the fitted spec gives the heads — a whole
+    number of heads a device — which is the one layout whose view into
+    heads DTensor can take; a head count that a mesh axis does not
+    divide is gathered over that axis (JAX pads it instead: ROADMAP
+    Queue 3).  A plain tensor is only reshaped."""
+    b, s, width = x.shape
+    hd = width // heads
+    rules = _ACTIVE_RULES.get()
+    if rules is None or not is_dtensor(x):
+        return shard(x.reshape(b, s, heads, hd).transpose(1, 2), axes)
+    spec = rules.fit(rules.entries(axes), (b, heads, s, hd))
+    x = x.redistribute(rules.mesh,
+                       rules.placements((spec[0], spec[2], spec[1])))
+    return x.reshape(b, s, heads, hd).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor, axes: Sequence[Optional[str]]
+                ) -> torch.Tensor:
+    """[B, heads, S, hd] → [B, S, heads·hd], the inverse of
+    :func:`split_heads` for the same ``axes``.  A DTensor's result is
+    pinned where the fitted heads split leaves the flat dimension, so
+    that its gradient reaches the view in a layout DTensor can split
+    back into heads."""
+    b, heads, s, hd = x.shape
+    y = x.transpose(1, 2).reshape(b, s, heads * hd)
+    rules = _ACTIVE_RULES.get()
+    if rules is not None and is_dtensor(y):
+        spec = rules.fit(rules.entries(axes), (b, heads, s, hd))
+        y = y.redistribute(rules.mesh,
+                           rules.placements((spec[0], spec[2], spec[1])))
+    return y
+
+
+def gather_fsdp(tree: PyTree) -> PyTree:
+    """Every DTensor leaf of ``tree`` gathered over the mesh axes of the
+    logical axis "fsdp" (JAX's ZeRO-3 meaning: a weight is all-gathered
+    where it is used, and its gradient reduce-scattered back); other
+    placements stay.  A plain leaf, or no active rules, is returned
+    as it is."""
+    rules = _ACTIVE_RULES.get()
+    if rules is None:
+        return tree
+    from torch.distributed.tensor import Replicate
+
+    names = list(rules.mesh.mesh_dim_names)
+    gathered = [names.index(a) for a in _parts(rules.resolve("fsdp"))
+                if a in names]
+
+    def one(x):
+        if not is_dtensor(x) or all(x.placements[i] == Replicate()
+                                  for i in gathered):
+            return x
+        placements = list(x.placements)
+        for i in gathered:
+            placements[i] = Replicate()
+        return x.redistribute(x.device_mesh, placements)
+
+    return tree_map(one, tree)
+
+
+def split_devices(x: torch.Tensor, dim: int) -> int:
+    """How many devices dimension ``dim`` of ``x`` is split over: 1 for
+    a plain tensor."""
+    if not is_dtensor(x):
+        return 1
+    from torch.distributed.tensor import Shard
+
+    dim = dim % x.dim()
+    n = 1
+    for i, p in enumerate(x.placements):
+        if p == Shard(dim):
+            n *= x.device_mesh.size(i)
+    return n
+
+
+def local_block(mesh, placements, dim: int, n: int) -> Tuple[int, int]:
+    """(first index, length) of this device's block of dimension ``dim``
+    (global length ``n``) under ``placements``: the mesh dims that split
+    it, the first major, in even blocks."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    idx = 0
+    for i, p in enumerate(placements):
+        if p == Shard(dim):
+            idx = idx * mesh.size(i) + coord[i]
+            n //= mesh.size(i)
+    return idx * n, n
+
+
+def on_shards(fn, inputs: Sequence, placements: Sequence, mesh,
+              out_placements: Sequence, out_shapes: Sequence):
+    """``fn`` over the local shards of ``inputs`` (DTensors, each first
+    redistributed to its entry of ``placements``; anything else is passed
+    as it is); returns one DTensor per output, of ``out_placements`` and
+    the global ``out_shapes`` (a dimension may split unevenly, as
+    ``torch.chunk`` splits it).  Differentiable both ways: an input whole
+    on a mesh dim that splits the computation (another input or an
+    output is not whole there) gets its gradient as a pending sum
+    (``Partial``) over that dim, since each device saw only its part."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    split = {i for pl in (*placements, *out_placements)
+             for i, p in enumerate(pl) if p != Replicate()}
+    local = []
+    for x, p in zip(inputs, placements):
+        if isinstance(x, DTensor):
+            p = tuple(p)
+            grad = tuple(Partial() if i in split and q == Replicate() else q
+                         for i, q in enumerate(p))
+            if tuple(x.placements) != p:
+                x = x.redistribute(mesh, p)
+            x = x.to_local(grad_placements=grad)
+        local.append(x)
+    outs = fn(*local)
+    single = isinstance(outs, torch.Tensor)
+    outs = (outs,) if single else tuple(outs)
+    wrapped = []
+    for o, p, shape in zip(outs, out_placements, out_shapes):
+        shape = torch.Size(shape)
+        wrapped.append(DTensor.from_local(
+            o.contiguous(), mesh, tuple(p), run_check=False, shape=shape,
+            stride=_contiguous(shape)))
+    return wrapped[0] if single else tuple(wrapped)
+
+
+def _contiguous(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def by_roles(fn, inputs: Sequence, roles: Sequence[Dict[str, int]],
+             out_roles: Sequence[Dict[str, int]], out_shapes: Sequence,
+             lead: int = 0):
+    """``fn`` over local shards, for DTensor ``inputs`` whose dimensions
+    play named roles (``roles[i]``: role → dim of input i, e.g.
+    ``{"batch": 0, "heads": 1}``) in a computation independent along
+    each role.  Each mesh dimension keeps the split ``inputs[lead]`` has
+    along one of its roles; every input is split along the same role
+    there (whole where it has no such dim), and every other split is
+    gathered.  Outputs: ``out_roles`` and global ``out_shapes``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    ref = inputs[lead]
+    mesh = ref.device_mesh
+    by_dim = {d: r for r, d in roles[lead].items()}
+    split = [by_dim.get(p.dim) if isinstance(p, Shard) else None
+             for p in ref.placements]
+
+    def pl(role_dims):
+        return [Shard(role_dims[r]) if r in role_dims else Replicate()
+                for r in split]
+
+    return on_shards(fn, inputs, [pl(r) for r in roles], mesh,
+                     [pl(r) for r in out_roles], out_shapes)

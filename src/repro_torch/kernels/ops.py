@@ -26,10 +26,11 @@ from typing import Iterator
 
 import torch
 
+from ..dist.sharding import is_dtensor
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import grouped_matmul as _gmm
-from . import paged_decode, ref
+from . import paged_decode, ref, spmd
 from . import ssd_scan as _ssd
 
 #: every kernel wrapper, for counting and resetting launches
@@ -205,7 +206,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     its own.  Where an input needs a gradient, the kernel runs through
     :class:`_FlashAttention` (a narrow V zero-padded to q's width and the
     output sliced back in autograd, so the padding's gradient is
-    dropped)."""
+    dropped).  DTensors run it on their local shards (``spmd``)."""
+    if is_dtensor(q):
+        return spmd.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, chunk=chunk)
     if _on_cpu(q):
         return ref.flash_attention_ref(
             q, k, v, causal=causal, window=window, q_offset=q_offset,
@@ -225,6 +229,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 def decode_attention(q, k, v, cur_pos, *, window=0):
     """[B, H, hd] attention of one token per row over its slot's
     [B, KV, S, hd] cache up to ``cur_pos[b]`` (K4)."""
+    if is_dtensor(q):
+        return spmd.decode_attention(q, k, v, cur_pos, window=window)
     if _on_cpu(q):
         return ref.decode_attention_ref(q, k, v, cur_pos, window=window)
     _no_backward("decode_attention", "decode only", q, k, v)
@@ -234,6 +240,8 @@ def decode_attention(q, k, v, cur_pos, *, window=0):
 def grouped_matmul(x, w):
     """[E, C, D] x [E, D, F] -> [E, C, F] per expert, summed in f32, in
     x's dtype (K5): the expert GEMMs of an MoE layer."""
+    if is_dtensor(x):
+        return spmd.grouped_matmul(x, w)
     if _on_cpu(x):
         return ref.grouped_matmul_ref(x, w)
     if _needs_grad(x, w):
@@ -246,6 +254,8 @@ def ssd_scan(x, dt, A, Bm, C, chunk):
     and the gate (K6): every Mamba-2 prefill and training layer.  Where
     an input needs a gradient, the kernel runs through
     :class:`_SsdScan`."""
+    if is_dtensor(x):
+        return spmd.ssd_scan(x, dt, A, Bm, C, chunk)
     if _on_cpu(x):
         return ref.ssd_scan_ref(x, dt, A, Bm, C, chunk)
     if _needs_grad(x, dt, A, Bm, C):

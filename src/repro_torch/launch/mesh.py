@@ -45,10 +45,19 @@ def make_production_mesh(*, multi_pod: bool = False):
     """The (16, 16) ("data", "model") mesh, or (2, 16, 16) ("pod", "data",
     "model") with ``multi_pod``, over the first ranks of a fake group of
     FAKE_WORLD ranks (set up here when no group is)."""
+    if multi_pod:
+        return make_fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_fake_mesh((16, 16), ("data", "model"))
+
+
+def make_fake_mesh(shape, axes=("data", "model")):
+    """A ``shape`` mesh named ``axes`` over the first ranks of a fake
+    group of FAKE_WORLD ranks (set up here when no group is): the
+    production meshes, and small ones (1×1, 2×4) whose collectives can
+    be worked out by hand."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = tuple(shape), tuple(axes)
     store = None if dist.is_initialized() else _fake_store()
     if store is not None:
         dist.init_process_group("fake", store=store, rank=0,

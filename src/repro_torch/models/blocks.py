@@ -17,8 +17,10 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..dist.sharding import shard
+from ..dist.sharding import (by_roles, is_dtensor, merge_heads, shard,
+                              split_heads)
 from ..kernels import ops as kernel_ops
+from ..kernels import spmd
 from ..kernels.ref import NEG_INF
 from .layers import (
     apply_rope,
@@ -28,6 +30,10 @@ from .layers import (
     dense_init,
     rms_norm,
 )
+
+
+#: the logical axes of q (and of attention's output) [B, H, S, hd]
+_HEADS = ("batch", "heads", "seq", None)
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype, device):
@@ -47,19 +53,14 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype, device):
 
 def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor):
     """x [B, S, d] → q [B, H, S, hd], k/v [B, KV, S, hd]."""
-    b, s, _ = x.shape
-    hd = cfg.head_dim
     q = torch.matmul(x, p["wq"])
     k = torch.matmul(x, p["wk"])
     v = torch.matmul(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    q = shard(q, ("batch", "heads", "seq", None))
-    k = shard(k, ("batch", "kv_heads", "seq", None))
-    v = shard(v, ("batch", "kv_heads", "seq", None))
+    q = split_heads(q, cfg.n_heads, _HEADS)
+    k = split_heads(k, cfg.n_kv_heads, ("batch", "kv_heads", "seq", None))
+    v = split_heads(v, cfg.n_kv_heads, ("batch", "kv_heads", "seq", None))
     return q, k, v
 
 
@@ -75,7 +76,7 @@ def attention_forward(
 ):
     """Full-sequence attention (prefill); with ``return_cache`` also the
     roped K and V [B, KV, S, hd]."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     q, k, v = _qkv(p, cfg, x)
     positions = q_offset + torch.arange(s, device=x.device)
     q = apply_rope(q, positions[None, None, :], cfg.rope_theta)
@@ -83,8 +84,7 @@ def attention_forward(
     out = chunked_attention(
         q, k, v, causal=causal, window=window, q_offset=q_offset
     )
-    out = out.transpose(1, 2).reshape(b, s, -1)
-    y = torch.matmul(out, p["wo"])
+    y = torch.matmul(merge_heads(out, _HEADS), p["wo"])
     if return_cache:
         return y, (k, v)
     return y
@@ -124,15 +124,18 @@ def attention_decode(
     pos_b = pos_t.expand(b) if pos_t.numel() == 1 else pos_t
     ring = window is not None and k_cache.shape[2] == window
     write_at = pos_b % window if ring else pos_b
-    idx = torch.arange(b, device=x.device) if rows is None else rows
-    k_cache[idx, :, write_at[idx]] = k_new[idx, :, 0]
-    v_cache[idx, :, write_at[idx]] = v_new[idx, :, 0]
+    if is_dtensor(k_cache) and rows is None:
+        spmd.write_at(k_cache, k_new[:, :, 0], write_at, 2)
+        spmd.write_at(v_cache, v_new[:, :, 0], write_at, 2)
+    else:
+        idx = torch.arange(b, device=x.device) if rows is None else rows
+        k_cache[idx, :, write_at[idx]] = k_new[idx, :, 0]
+        v_cache[idx, :, write_at[idx]] = v_new[idx, :, 0]
     if ring:
         out = decode_attention_ring(q, k_cache, v_cache, pos_b, window)
     else:
         out = decode_attention(q, k_cache, v_cache, pos_b, window=window)
-    out = out.transpose(1, 2).reshape(b, 1, -1)
-    y = torch.matmul(out, p["wo"])
+    y = torch.matmul(merge_heads(out, _HEADS), p["wo"])
     return y, (k_cache, v_cache)
 
 
@@ -164,12 +167,8 @@ def _mla_q(p: dict, cfg: ArchConfig, x: torch.Tensor,
     """x [B, S, d] → (q_nope [B, H, S, nope], roped q_rope [B, H, S,
     rope]); ``positions`` broadcasts to [B, 1, S]."""
     m = cfg.mla
-    b, s, _ = x.shape
-    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
     q_lat = rms_norm(torch.matmul(x, p["wq_a"]), p["q_ln"], cfg.norm_eps)
-    q = torch.matmul(q_lat, p["wq_b"]).reshape(
-        b, s, cfg.n_heads, qk_dim
-    ).transpose(1, 2)
+    q = split_heads(torch.matmul(q_lat, p["wq_b"]), cfg.n_heads, _HEADS)
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
                         cfg.rope_theta)
@@ -206,9 +205,7 @@ def mla_forward(
     positions = (q_offset + torch.arange(s, device=x.device))[None, None, :]
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     latent, k_rope = _mla_latent(p, cfg, x, positions)
-    kv = torch.matmul(latent, p["wkv_b"]).reshape(
-        b, s, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim
-    ).transpose(1, 2)
+    kv = split_heads(torch.matmul(latent, p["wkv_b"]), cfg.n_heads, _HEADS)
     k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([
@@ -216,8 +213,7 @@ def mla_forward(
         k_rope.expand(b, cfg.n_heads, s, m.qk_rope_head_dim),
     ], dim=-1)
     out = chunked_attention(q, k, v, causal=True, q_offset=q_offset)
-    out = out.transpose(1, 2).reshape(b, s, -1)
-    y = torch.matmul(out, p["wo"])
+    y = torch.matmul(merge_heads(out, _HEADS), p["wo"])
     if return_cache:
         return y, (latent, k_rope[:, 0])
     return y
@@ -247,9 +243,13 @@ def mla_decode(
         pos_t.reshape(1, 1, 1))
     q_nope, q_rope = _mla_q(p, cfg, x, positions)  # [B, H, 1, *]
     latent_new, k_rope_new = _mla_latent(p, cfg, x, positions)
-    idx = torch.arange(b, device=x.device) if rows is None else rows
-    latent_cache[idx, pos_b[idx]] = latent_new[idx, 0]
-    rope_cache[idx, pos_b[idx]] = k_rope_new[idx, 0, 0]
+    if is_dtensor(latent_cache) and rows is None:
+        spmd.write_at(latent_cache, latent_new[:, 0], pos_b, 1)
+        spmd.write_at(rope_cache, k_rope_new[:, 0, 0], pos_b, 1)
+    else:
+        idx = torch.arange(b, device=x.device) if rows is None else rows
+        latent_cache[idx, pos_b[idx]] = latent_new[idx, 0]
+        rope_cache[idx, pos_b[idx]] = k_rope_new[idx, 0, 0]
     wkv_b = p["wkv_b"].reshape(
         m.kv_lora_rank, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim
     )
@@ -268,8 +268,7 @@ def mla_decode(
     probs = torch.softmax(logits, dim=-1)
     ctx = torch.einsum("bhqs,bsr->bhqr", probs, lat)
     out = torch.einsum("bhqr,rhv->bhqv", ctx, w_v)  # [B, H, 1, v]
-    out = out.transpose(1, 2).reshape(b, 1, -1).to(x.dtype)
-    y = torch.matmul(out, p["wo"])
+    y = torch.matmul(merge_heads(out, _HEADS).to(x.dtype), p["wo"])
     return y, (latent_cache, rope_cache)
 
 
@@ -357,6 +356,21 @@ def moe_dispatch_row(x: torch.Tensor, gates: torch.Tensor, top_k: int,
             keep)
 
 
+def _combine(slot, tok, gate_w, keep, ye, cap: int, top_k: int):
+    """The gated sum of each token's k expert outputs, in f32 [G, N, d],
+    token by token: ``ye`` [E, G·cap, d] holds the groups folded into the
+    capacity axis; a dropped entry reads slot 0 of its group with weight
+    0."""
+    groups, d = slot.shape[0], ye.shape[-1]
+    ye = ye.reshape(-1, d)
+    group = torch.arange(groups, device=ye.device)[:, None]
+    rows = (slot // cap) * (groups * cap) + group * cap + slot % cap
+    by_tok = torch.argsort(tok, dim=-1, stable=True)
+    weight = (gate_w * keep).gather(1, by_tok)
+    vals = ye[rows.gather(1, by_tok)].float() * weight[..., None]
+    return vals.view(groups, -1, top_k, d).sum(dim=2)
+
+
 def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
                 per_row: bool = False) -> torch.Tensor:
     """Token-choice top-k MoE with capacity dropping, as the JAX package's
@@ -378,7 +392,17 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
         x, gates = x.transpose(0, 1), gates.transpose(0, 1)
     cap = _capacity(cfg, s) if s > 1 else _decode_capacity(cfg, x.shape[1])
     groups, n = gates.shape[0], gates.shape[1]
-    xe, slot, tok, gate_w, keep = moe_dispatch_row(x, gates, moe.top_k, cap)
+    # on DTensors each device dispatches and combines its own groups
+    g0, folded = {"group": 0}, {"group": 1}  # [E, G·cap, d]: groups in dim 1
+    if is_dtensor(x):
+        xe, slot, tok, gate_w, keep = by_roles(
+            lambda xl, gl: moe_dispatch_row(xl, gl, moe.top_k, cap),
+            (x, gates), (g0, g0), (folded,) + (g0,) * 4,
+            ((moe.num_experts, groups * cap, d),)
+            + ((groups, n * moe.top_k),) * 4)
+    else:
+        xe, slot, tok, gate_w, keep = moe_dispatch_row(x, gates, moe.top_k,
+                                                       cap)
     # the groups fold into the capacity axis: where they are the batch's
     # sequences (or rows), that axis carries JAX's "batch" pin
     rows_axis = None if one_group else "batch"
@@ -387,15 +411,13 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     h_up = kernel_ops.grouped_matmul(xe, p["up"])
     h = F.silu(h_gate.float()).to(x.dtype) * h_up
     h = shard(h, ("expert", rows_axis, "expert_mlp"))
-    ye = kernel_ops.grouped_matmul(h, p["down"]).reshape(-1, d)
-    # combine, token by token (each token has k entries): a dropped entry
-    # reads slot 0 of its group with weight 0
-    group = torch.arange(groups, device=x.device)[:, None]
-    rows = (slot // cap) * (groups * cap) + group * cap + slot % cap
-    by_tok = torch.argsort(tok, dim=-1, stable=True)
-    weight = (gate_w * keep).gather(1, by_tok)
-    vals = ye[rows.gather(1, by_tok)].float() * weight[..., None]
-    y = vals.view(groups, n, moe.top_k, d).sum(dim=2)  # [G, N, d] f32
+    ye = kernel_ops.grouped_matmul(h, p["down"])
+    if is_dtensor(ye):
+        y = by_roles(lambda *t: _combine(*t, cap, moe.top_k),
+                     (slot, tok, gate_w, keep, ye), (g0,) * 4 + (folded,),
+                     (g0,), ((groups, n, d),))
+    else:
+        y = _combine(slot, tok, gate_w, keep, ye, cap, moe.top_k)
     if one_group:
         y = y.transpose(0, 1)
     return y.to(x.dtype)
@@ -511,6 +533,17 @@ def _final_state(xs, dt, A, B) -> torch.Tensor:
     return torch.einsum("bsd,bshp->bhpd", B, wx)
 
 
+def _ssd_step(state, xs, dt, A, Bc, Cc, D):
+    """One recurrent step of the SSD state [b, nh, hd, ds] (f32), and its
+    output with the D skip [b, nh, hd]."""
+    decay = torch.exp(dt * A[None, :])  # [b, nh]
+    new_state = decay[:, :, None, None] * state + torch.einsum(
+        "bd,bhp->bhpd", Bc, dt[..., None] * xs
+    )
+    y = torch.einsum("bhpd,bd->bhp", new_state, Cc)  # [b, nh, hd]
+    return new_state, y + D[None, :, None] * xs
+
+
 def mamba_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache, pos,
                  *, rows: Optional[torch.Tensor] = None):
     """Single-token Mamba-2 step: O(1) state update, plain torch (the JAX
@@ -544,18 +577,24 @@ def mamba_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache, pos,
     xs = xc.reshape(b, nh, ssm.head_dim)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])  # [b, nh]
     A = -torch.exp(p["A_log"])
-
-    decay = torch.exp(dt * A[None, :])  # [b, nh]
-    new_state = decay[:, :, None, None] * state + torch.einsum(
-        "bd,bhp->bhpd", Bc, dt[..., None] * xs
-    )
-    y = torch.einsum("bhpd,bd->bhp", new_state, Cc)  # [b, nh, hd]
-    y = y + p["D"][None, :, None] * xs
+    if is_dtensor(xs):  # each device steps its rows' heads
+        bh, b_only = {"batch": 0, "heads": 1}, {"batch": 0}
+        h_only = {"heads": 0}
+        new_state, y = by_roles(
+            _ssd_step, (state, xs, dt, A, Bc, Cc, p["D"]),
+            (bh, bh, bh, h_only, b_only, b_only, h_only), (bh, bh),
+            (tuple(state.shape), tuple(xs.shape)))
+    else:
+        new_state, y = _ssd_step(state, xs, dt, A, Bc, Cc, p["D"])
     y = y.reshape(b, di).to(x.dtype)
     y = y * F.silu(z.float()).to(x.dtype)
     out = torch.matmul(y, p["out_proj"])[:, None]
     idx = torch.arange(b, device=x.device) if rows is None else rows
     for old, new in ((cx, new_cx), (cB, new_cB), (cC, new_cC),
                      (state, new_state)):
-        old[idx] = new[idx].to(old.dtype)
+        if is_dtensor(old) and rows is None:  # every row: a copy
+            old.copy_(new.to(old.dtype).redistribute(old.device_mesh,
+                                                     old.placements))
+        else:
+            old[idx] = new[idx].to(old.dtype)
     return out, cache

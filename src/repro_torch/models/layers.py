@@ -15,8 +15,9 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import shard
+from ..dist.sharding import is_dtensor, shard
 from ..kernels import ops as kernel_ops
+from ..kernels import spmd
 from ..kernels.ref import NEG_INF, repeat_kv
 
 
@@ -172,7 +173,15 @@ def decode_attention_ring(
     with p % window == i; keys carry RoPE at their absolute position, so
     a slot is valid iff that position is >= 0.  q: [B, H, 1, hd];
     k_ring/v_ring: [B, KV, window, hd]; cur_pos: an int or a [B] tensor.
+    DTensors run it on their local shards (``kernels.spmd``).
     """
+    if is_dtensor(q):
+        return spmd.ring_attention(q, k_ring, v_ring, cur_pos, window,
+                                   _ring_attention)
+    return _ring_attention(q, k_ring, v_ring, cur_pos, window)
+
+
+def _ring_attention(q, k_ring, v_ring, cur_pos, window: int):
     b, h, _, hd = q.shape
     groups = h // k_ring.shape[1]
     k = repeat_kv(k_ring, groups)

@@ -42,7 +42,8 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from ..configs.base import ArchConfig
-from ..dist.sharding import shard
+from ..dist.sharding import (gather_fsdp, is_dtensor, local_block,
+                              merge_heads, on_shards, shard, split_heads)
 from ..kernels import ops as kernel_ops
 from ..tree import tree_leaves, tree_map
 from . import blocks
@@ -315,10 +316,10 @@ def _layers(cfg: ArchConfig, params, caches=None) -> Iterator[Tuple]:
             if caches is not None:
                 c = tuple(leaf[r] for leaf in caches["unit"][key])
             pc = None if cross is None else _index(cross[key], r)
-            yield btype, p, c, pc
+            yield btype, gather_fsdp(p), c, gather_fsdp(pc)
     for j, (btype, p) in enumerate(zip(cfg.suffix_blocks, params["suffix"])):
         c = caches["suffix"][j] if caches is not None else None
-        yield btype, p, c, None
+        yield btype, gather_fsdp(p), c, None
 
 
 def _index(tree: PyTree, r: int) -> PyTree:
@@ -329,8 +330,39 @@ def _index(tree: PyTree, r: int) -> PyTree:
 
 # ----------------------------------------------------------------- forward
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"]["tokens"][tokens.long()]
+    table = gather_fsdp(params["embed"]["tokens"])
+    if is_dtensor(table):
+        x = _embed_local(table, tokens.long())
+    else:
+        x = table[tokens.long()]
     return shard(x, ("batch", "seq", "embed"))
+
+
+def _embed_local(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup in a DTensor table, on each device's shards: the rows
+    of its tokens' batch split; where the vocabulary is split across
+    devices, each looks up the tokens in its rows (zeros for the others)
+    and the sum over the split is pending (``Partial``) until the
+    caller's pin: an all-reduce of the activations, not a gather of the
+    table."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    first, _ = local_block(mesh, table.placements, 0, table.shape[0])
+
+    def lookup(tab, tok):
+        idx = tok - first
+        here = (idx >= 0) & (idx < tab.shape[0])
+        rows = tab[idx.clamp(0, tab.shape[0] - 1)]
+        return torch.where(here[..., None], rows, 0.0).to(tab.dtype)
+
+    tok_pl = [p if p == Shard(0) and table.placements[i] != Shard(0)
+              else Replicate() for i, p in enumerate(tokens.placements)]
+    out_pl = [Partial() if table.placements[i] == Shard(0) else p
+              for i, p in enumerate(tok_pl)]
+    shape = tuple(tokens.shape) + (table.shape[1],)
+    return on_shards(lookup, (table, tokens), (table.placements, tok_pl),
+                     mesh, (out_pl,), (shape,))
 
 
 def _unembed(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -338,6 +370,14 @@ def _unembed(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = torch.matmul(x.float(), unembed_weight(cfg, params).float())
     return shard(logits, ("batch", "seq", "vocab"))
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y``, ``y`` (a block's output projection, whose sum over the
+    model axis is pending in a step on DTensors) pinned first to the
+    residual's layout: the all-reduce of a row-parallel product lands
+    there, as XLA places it, not in the next block's norm."""
+    return x + shard(y, ("batch", "seq", "embed"))
 
 
 def _ffn(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
@@ -381,10 +421,12 @@ def encoder_forward(cfg: ArchConfig, params, frames: torch.Tensor, *,
     x = shard(x, ("batch", "seq", "embed"))
 
     def layer(h, p):
-        h = h + blocks.attention_forward(
+        p = gather_fsdp(p)
+        h = _residual(h, blocks.attention_forward(
             p["attn"], cfg, rms_norm(h, p["ln1"], cfg.norm_eps), causal=False
-        )
-        return h + apply_mlp(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+        ))
+        return _residual(h, apply_mlp(p["mlp"],
+                                      rms_norm(h, p["ln2"], cfg.norm_eps)))
 
     for r in range(cfg.enc_layers):
         x = _remat_call(remat, layer, x, _index(enc["layers"], r))
@@ -395,13 +437,12 @@ def _encode_cross_kv(cfg: ArchConfig, params, enc_out: torch.Tensor):
     """Cross-attention K/V [B, KV, T, hd] from the encoder output, with
     the FIRST decoder block's ``wk``/``wv``: as in the JAX package, one
     K/V serves every decoder layer."""
-    pc = _index(params["cross"]["b0"], 0)
-    b, t, _ = enc_out.shape
-    hd = cfg.head_dim
-    k = torch.matmul(enc_out, pc["attn"]["wk"]).reshape(
-        b, t, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = torch.matmul(enc_out, pc["attn"]["wv"]).reshape(
-        b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+    pc = gather_fsdp(_index(params["cross"]["b0"], 0))
+    axes = ("batch", "kv_heads", "seq", None)
+    k = split_heads(torch.matmul(enc_out, pc["attn"]["wk"]), cfg.n_kv_heads,
+                    axes)
+    v = split_heads(torch.matmul(enc_out, pc["attn"]["wv"]), cfg.n_kv_heads,
+                    axes)
     return k, v
 
 
@@ -412,12 +453,11 @@ def _cross_attend(pc: dict, cfg: ArchConfig, x: torch.Tensor,
     decode step), added to the residual."""
     k, v = ctx_kv
     h = rms_norm(x, pc["ln_x"], cfg.norm_eps)
-    b, s, _ = h.shape
-    q = torch.matmul(h, pc["attn"]["wq"]).reshape(
-        b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    q = split_heads(torch.matmul(h, pc["attn"]["wq"]), cfg.n_heads,
+                    ("batch", "heads", "seq", None))
     out = chunked_attention(q, k, v, causal=False)
-    out = out.transpose(1, 2).reshape(b, s, -1)
-    return x + torch.matmul(out, pc["attn"]["wo"])
+    return _residual(x, torch.matmul(merge_heads(out, blocks._HEADS),
+                                     pc["attn"]["wo"]))
 
 
 # --------------------------------------------------- full-sequence blocks
@@ -444,7 +484,7 @@ def _apply_block_full(
                                             return_cache=True)
         else:
             y = blocks.mamba_forward(p["mamba"], cfg, h)
-        x = x + y
+        x = _residual(x, y)
     elif btype == "shared_attn":
         x, cache = _shared_attn_full(p, cfg, shared_body, x, h,
                                      q_offset=q_offset, causal=causal)
@@ -458,8 +498,8 @@ def _apply_block_full(
                 causal=causal, q_offset=q_offset, return_cache=want_cache,
             )
         a, cache = out if want_cache else (out, None)
-        x = x + a
-        x = x + _ffn(p, cfg, x)
+        x = _residual(x, a)
+        x = _residual(x, _ffn(p, cfg, x))
     x = shard(bf16_grad(x), ("batch", "seq", "embed"))
     return x, (cache if want_cache else None)
 
@@ -549,6 +589,8 @@ def backbone_forward(
     caches: List[Any] = []
 
     def unit_fn(h, unit_p, unit_cross):
+        # the unit's weights gathered at use, again in the recompute
+        unit_p, unit_cross = gather_fsdp((unit_p, unit_cross))
         outs = []
         for i, bt in enumerate(pattern):
             h, c = _apply_block_full(
@@ -572,8 +614,8 @@ def backbone_forward(
             x = _remat_call(remat, unit_fn, x, unit_p, unit_cross)
     for p_blk, bt in zip(params["suffix"], cfg.suffix_blocks):
         x, c = _apply_block_full(
-            p_blk, cfg, bt, x, shared_body=shared_body, q_offset=q_offset,
-            causal=causal, want_cache=want_cache,
+            gather_fsdp(p_blk), cfg, bt, x, shared_body=shared_body,
+            q_offset=q_offset, causal=causal, want_cache=want_cache,
         )
         caches.append(c)
     return x, (caches if want_cache else None)
@@ -617,8 +659,8 @@ def forward_hidden(
 
 def unembed_weight(cfg: ArchConfig, params) -> torch.Tensor:
     """[d, V]: the tied embedding's transpose, or ``lm_head``."""
-    return (params["embed"]["tokens"].t() if cfg.tie_embeddings
-            else params["lm_head"])
+    return gather_fsdp(params["embed"]["tokens"].t() if cfg.tie_embeddings
+                       else params["lm_head"])
 
 
 def forward(
@@ -686,14 +728,15 @@ def _shared_attn_full(p: dict, cfg: ArchConfig, body: dict,
     adapter, the shared body (attention through K3 on the card, then its
     MLP), the out adapter added to the residual ``x``; returns (x, the
     body's K/V)."""
+    body = gather_fsdp(body)
     inner = torch.matmul(h, p["in_adapter"])
     g = rms_norm(inner, body["ln1"], cfg.norm_eps)
     a, kv = blocks.attention_forward(body["attn"], cfg, g, q_offset=q_offset,
                                      causal=causal, return_cache=True)
-    inner = inner + a
-    inner = inner + apply_mlp(body["mlp"],
-                              rms_norm(inner, body["ln2"], cfg.norm_eps))
-    return x + torch.matmul(inner, p["out_adapter"]), kv
+    inner = _residual(inner, a)
+    inner = _residual(inner, apply_mlp(
+        body["mlp"], rms_norm(inner, body["ln2"], cfg.norm_eps)))
+    return _residual(x, torch.matmul(inner, p["out_adapter"])), kv
 
 
 def _to_ring(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -749,17 +792,17 @@ def decode_step(
         if btype == "mamba":
             y, _ = blocks.mamba_decode(p["mamba"], cfg, h, cache, pos,
                                        rows=rows)
-            x = x + y
+            x = _residual(x, y)
         elif btype == "shared_attn":
-            body = params["shared_body"]
+            body = gather_fsdp(params["shared_body"])
             inner = torch.matmul(h, p["in_adapter"])
             g = rms_norm(inner, body["ln1"], cfg.norm_eps)
             a, _ = blocks.attention_decode(body["attn"], cfg, g, cache, pos,
                                            rows=rows)
-            inner = inner + a
-            inner = inner + apply_mlp(
-                body["mlp"], rms_norm(inner, body["ln2"], cfg.norm_eps))
-            x = x + torch.matmul(inner, p["out_adapter"])
+            inner = _residual(inner, a)
+            inner = _residual(inner, apply_mlp(
+                body["mlp"], rms_norm(inner, body["ln2"], cfg.norm_eps)))
+            x = _residual(x, torch.matmul(inner, p["out_adapter"]))
         else:
             if cfg.mla is not None:
                 a, _ = blocks.mla_decode(p["attn"], cfg, h, cache, pos,
@@ -769,8 +812,8 @@ def decode_step(
                     p["attn"], cfg, h, cache, pos,
                     window=_window(cfg, btype), rows=rows,
                 )
-            x = x + a
-            x = x + _ffn(p, cfg, x, per_row=per_row)
+            x = _residual(x, a)
+            x = _residual(x, _ffn(p, cfg, x, per_row=per_row))
         if cross_kv is not None and pc is not None:
             x = _cross_attend(pc, cfg, x, cross_kv)
     return _unembed(cfg, params, x), caches

@@ -6,16 +6,30 @@ Per (arch × shape × mesh) cell, from the port's dry-run record
 
     compute    = analytic useful FLOPs (remat-adjusted) / chips / peak
     memory     = analytic HBM traffic / chips / HBM bandwidth
-    collective = collective bytes per device / NVLink bandwidth
+    collective = Σ over mesh axes of that axis's collective bytes per
+                 device / the rate of the link its groups cross
 
 MODEL_FLOPS uses 6·N·T (train) / 2·N·T (inference) with N = active
 params, plus the causal-attention term; the ratio MODEL_FLOPS / (traced
 FLOPs × chips) measures how much of the traced step's compute is
 "useful" (remat recompute, dispatch overheads and padding show up
-here).  The traced FLOPs are counted by ``FlopCounterMode`` on fake
-tensors, not measured.  The port's records carry no collective bytes
-(``null``): their term is then ``None``, shown as "–", and the
-bottleneck and step time use the terms that exist.
+here).  The traced FLOPs are those of the per-device program on fake
+tensors (``repro_torch.launch.dryrun``), counted, not measured.
+
+Links.  One HGX H100 node joins 8 cards by NVLink 4: 450 GB/s each way
+a card (NVIDIA's H100 data sheet: 900 GB/s both ways).  Nodes are joined
+by InfiniBand: 8 ConnectX-7 NDR ports a node, 400 Gb/s = 50 GB/s each
+way a card (NVIDIA's DGX H100 reference architecture).  Ranks are laid
+out on nodes in mesh order (the last mesh axis fastest), 8 to a node, so
+a collective over mesh axis i stays on NVLink only where its group's
+ranks, ``size_i`` of them ``stride_i`` apart (the product of the later
+axes' sizes), fall in one node: ``(size_i - 1) * stride_i < 8``.  On
+the 16×16 and 2×16×16 meshes every axis crosses nodes.  A record's
+collectives carry their bytes by mesh axis (``axes``) and the mesh's
+axes and sizes (``mesh_axes``); a record without them (or a record of
+another package) prices all its bytes at NVLink's rate.  A record with
+``null`` collectives has no collective term: "–", and the bottleneck
+and step time use the terms that exist.
 
 The constants are the H100 SXM part's (NVIDIA's data sheet, dense rates
 without sparsity, 700 W): ``nvidia-smi`` names it "NVIDIA H100 80GB
@@ -38,6 +52,8 @@ FP32_PEAK_FLOPS = 67e12  # f32 FLOP/s on the CUDA cores, outside the tensor core
 HBM_BW = 3.35e12  # HBM3 bytes/s
 PCIE_BW = 64e9  # bytes/s host link, PCIe Gen5 x16 — KV offload/promote path
 NVLINK_BW = 450e9  # bytes/s each way, NVLink 4 (900 GB/s both ways)
+IB_BW = 50e9  # bytes/s each way a card, one 400 Gb/s NDR port a card
+NODE_CARDS = 8  # cards an HGX H100 node joins by NVLink
 
 CHIPS = {"16x16": 256, "2x16x16": 512}
 
@@ -196,7 +212,7 @@ class RooflineCell:
     mesh: str
     compute_s: float  # analytic useful compute (remat-adjusted) / peak
     memory_s: float  # analytic traffic / HBM bw
-    collective_s: Optional[float]  # collective bytes / NVLink; None: unknown
+    collective_s: Optional[float]  # bytes by axis / link rate; None: unknown
     model_flops: float
     traced_flops_global: float
     traced_compute_s: float  # counted FLOPs per device / peak
@@ -236,6 +252,39 @@ class RooflineCell:
         return (self.model_flops / chips / self.step_time_s) / PEAK_FLOPS
 
 
+def link_bw(mesh_axes, axis: str) -> float:
+    """The rate of the link a collective over ``axis`` ("+"-joined where
+    it spans several mesh axes) crosses on a mesh of ``mesh_axes``
+    ([name, size] pairs, outermost first): NVLink where the group's
+    ranks fall in one node of NODE_CARDS, else InfiniBand."""
+    names = [n for n, _ in mesh_axes]
+    span = 0
+    for part in axis.split("+"):
+        if part not in names:
+            return NVLINK_BW
+        i = names.index(part)
+        stride = 1
+        for _, size in mesh_axes[i + 1:]:
+            stride *= size
+        span += (mesh_axes[i][1] - 1) * stride
+    return NVLINK_BW if span < NODE_CARDS else IB_BW
+
+
+def collective_seconds(coll: Dict[str, dict], mesh_axes=None) -> float:
+    """Seconds of a record's collectives: each kind's bytes by mesh axis
+    at the rate of the link that axis crosses (:func:`link_bw`); bytes
+    a record does not place on an axis at NVLink's rate."""
+    total = 0.0
+    for entry in coll.values():
+        axes = entry.get("axes") if mesh_axes else None
+        if not axes:
+            total += entry.get("bytes", 0) / NVLINK_BW
+            continue
+        for axis, a in axes.items():
+            total += a.get("bytes", 0) / link_bw(mesh_axes, axis)
+    return total
+
+
 def load_cell(record: dict) -> Optional[RooflineCell]:
     if record.get("skipped") or "error" in record:
         return None
@@ -253,7 +302,7 @@ def load_cell(record: dict) -> Optional[RooflineCell]:
         compute_s=mflops * remat / chips / PEAK_FLOPS,
         memory_s=traffic / chips / HBM_BW,
         collective_s=(None if coll is None else
-                      sum(v.get("bytes", 0) for v in coll.values()) / NVLINK_BW),
+                      collective_seconds(coll, record.get("mesh_axes"))),
         model_flops=mflops,
         traced_flops_global=flops_dev * chips,
         traced_compute_s=flops_dev / PEAK_FLOPS,

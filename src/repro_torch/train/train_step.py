@@ -16,7 +16,7 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from ..configs.base import ArchConfig
-from ..dist.sharding import shard
+from ..dist.sharding import local_block, on_shards, shard, split_devices
 from ..models.transformer import forward, forward_hidden, unembed_weight
 from ..optim import adamw
 from ..tree import tree_flatten, tree_unflatten
@@ -27,10 +27,45 @@ PyTree = Any
 def _nll_sum(logits: torch.Tensor, labels: torch.Tensor):
     """(sum of the next-token NLL over non-padding positions, their
     count): label -1 is padding."""
+    if split_devices(logits, -1) > 1:
+        return _nll_sum_split(logits, labels)
     logp = torch.log_softmax(logits.float(), dim=-1)
     mask = (labels >= 0).float()
     safe = labels.clamp_min(0).long()
     nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return torch.sum(nll * mask), torch.sum(mask)
+
+
+def _nll_sum_split(logits: torch.Tensor, labels: torch.Tensor):
+    """``_nll_sum`` of DTensor logits whose vocabulary is split across
+    devices, without gathering it (as XLA partitions the reference's
+    ``log_softmax`` and label gather): the log-sum-exp from an
+    all-reduced maximum and sum, and each label's logit picked on the
+    device that holds it and summed across the others."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rows = ("batch", "seq")
+    lf = logits.float()
+    m = shard(lf.amax(dim=-1), rows).detach()
+    lse = torch.log(shard(torch.exp(lf - m[..., None]).sum(dim=-1), rows)) + m
+    mesh = logits.device_mesh
+    v_dim = logits.dim() - 1
+    first, _ = local_block(mesh, logits.placements, v_dim, logits.shape[-1])
+    safe = labels.clamp_min(0).long()
+
+    def pick(ll, lab):
+        idx = lab - first
+        here = (idx >= 0) & (idx < ll.shape[-1])
+        got = ll.gather(-1, idx.clamp(0, ll.shape[-1] - 1)[..., None])[..., 0]
+        return torch.where(here, got, 0.0)
+
+    pl = [Partial() if p == Shard(v_dim) else p for p in lf.placements]
+    lab_pl = [Replicate() if p == Shard(v_dim) else p
+              for p in lf.placements]
+    picked = on_shards(pick, (lf, safe), (lf.placements, lab_pl), mesh,
+                       (pl,), (tuple(lf.shape[:-1]),))
+    mask = (labels >= 0).float()
+    nll = lse - shard(picked, rows)
     return torch.sum(nll * mask), torch.sum(mask)
 
 
@@ -65,13 +100,15 @@ def lm_loss(
                          remat=remat)
         # modality frontends prepend positions (vision tokens): the loss
         # runs on the trailing text positions only
-        logits = logits[:, -labels.shape[1]:]
+        if logits.shape[1] != labels.shape[1]:
+            logits = logits[:, -labels.shape[1]:]
         nll_sum, n_tok = _nll_sum(logits, labels)
         return nll_sum / torch.clamp_min(n_tok, 1.0)
 
     hidden = forward_hidden(cfg, params, tokens, extra=extra or None,
                             remat=remat)
-    hidden = hidden[:, -labels.shape[1]:]
+    if hidden.shape[1] != labels.shape[1]:
+        hidden = hidden[:, -labels.shape[1]:]
     w = unembed_weight(cfg, params)
     s = hidden.shape[1]
     chunk = min(loss_chunk, s)

@@ -11,6 +11,10 @@ to the wrappers: every check of the phase runs — the bit-equal losses,
 grad norms, leaves and logits with and without rules, and the launch
 counts predicted for the card.  ``dryrun``: the phase itself, its
 DRYRUN_CELLS as on the card (each cell a process of the CLI).
+``dryrun-memory``: the phase at smoke width (4 layers, TRAIN_BATCH × 64),
+the card's memory calls standing for a ``ProgramCounter`` over the real
+CPU step (its live bytes above the step's entry): the dry-run's count on
+fake DTensors equals the plain step's on real tensors, byte for byte.
 """
 
 import pytest
@@ -22,6 +26,7 @@ from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import flash_attention as _flash  # noqa: E402
 from repro_torch.kernels import grouped_matmul as _gmm  # noqa: E402
 from repro_torch.kernels import ops, paged_decode, ref  # noqa: E402
+from repro_torch.launch.dryrun import ProgramCounter  # noqa: E402
 from repro_torch.launch.mesh import destroy_mesh_group  # noqa: E402
 from repro_torch.models import init_model  # noqa: E402
 
@@ -89,3 +94,25 @@ def test_dryrun_phase_rehearsal(tmp_path):
     cells = chip_smoke.dryrun_phase(torch, "cpu", out_dir=tmp_path)
     assert [c["rc"] for c in cells] == [0] * len(chip_smoke.DRYRUN_CELLS)
     assert {c["mesh"] for c in cells} == {"16x16", "2x16x16"}
+
+
+def test_dryrun_memory_phase_rehearsal(rehearsal, monkeypatch, capsys):
+    counters = []
+
+    def reset_peak():
+        counters.append(ProgramCounter().__enter__())
+
+    def max_allocated():
+        counters[-1].__exit__(None, None, None)
+        return counters[-1].peak
+
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", reset_peak)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", max_allocated)
+    archs = {"granite-moe-3b-a800m": ARCHS["granite-moe-3b-a800m"].smoke()}
+    rel = chip_smoke.dryrun_memory_phase(torch, archs, init_model, ops, "cpu")
+    assert rel == 0.0
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if '"phase": "dryrun-memory"' in ln]
+    assert len(line) == 1 and '"measured_peak_bytes": ' in line[0]
+    assert not torch.distributed.is_initialized()

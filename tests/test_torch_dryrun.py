@@ -7,15 +7,24 @@ CPU.
   package's own ``serve.kv_cache`` helpers).
 - Two cells through the CLI in a subprocess (a decode cell on 16×16 and
   an MoE decode cell on 2×16×16): exit 0, a record with the JAX
-  package's keys, collectives and temp memory ``null``, FLOPs per device
-  that are the counted total over the chips, and per-device argument
-  bytes equal to the sum, over every parameter and batch leaf, of its
-  bytes over the mesh factors its fitted spec names — worked out here
-  from the specs alone, with no DTensor.  A second run reads the cache.
+  package's keys and ``mesh_axes``; collectives as a dict of
+  ``{count, bytes}`` per kind under the JAX names, each split by the
+  mesh axes it spans (``axes``, summing to the kind's totals), and an
+  integer temp memory (the per-device program's, ``test_torch_dryrun_
+  program.py``); FLOPs per device that cover the weights' 2·N a token
+  over the chips; and per-device argument bytes equal to the sum, over
+  every parameter and batch leaf, of its bytes over the mesh factors
+  its fitted spec names — worked out here from the specs alone, with
+  no DTensor.  A second run reads the cache.
 - A failing cell is recorded with its error and ``main`` exits 1.
 - A record with ``null`` collectives has no collective term: the
   bottleneck and the step time come from compute and memory, and the
-  table prints "–".
+  table prints "–"; a record without ``axes`` prices its bytes at
+  NVLink's rate.
+- The collective term prices each mesh axis's bytes by the link its
+  groups cross: on a 2×4 mesh both axes stay in one 8-card node
+  (NVLink), on 16×16 both cross nodes (InfiniBand), and on 2×16×16 the
+  pod axis too, whatever its size (a known answer worked out by hand).
 """
 
 import json
@@ -43,7 +52,9 @@ SRC = os.path.join(ROOT, "src")
 CELLS = [(a, s) for a, c in ARCHS.items() for s in c.applicable_shapes]
 RECORD_KEYS = {"arch", "shape", "mesh", "kind", "variant", "params",
                "active_params", "lower_s", "compile_s", "cost", "memory",
-               "collectives"}
+               "collectives", "mesh_axes"}
+JAX_KINDS = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+             "collective-permute"}
 
 
 @pytest.fixture
@@ -107,8 +118,16 @@ def test_cli_cell(tmp_path, fake_group, arch, shape, multi_pod):
     assert set(rec) == RECORD_KEYS
     assert (rec["arch"], rec["shape"], rec["mesh"], rec["kind"],
             rec["variant"]) == (arch, shape, mesh, "decode", "baseline")
-    assert rec["collectives"] is None
-    assert rec["memory"]["temp_size_in_bytes"] is None
+    coll = rec["collectives"]
+    assert coll and set(coll) <= JAX_KINDS, coll
+    names = {n for n, _ in rec["mesh_axes"]}
+    for entry in coll.values():
+        assert entry["count"] > 0 and entry["bytes"] > 0
+        assert all(set(a.split("+")) <= names for a in entry["axes"])
+        for key in ("count", "bytes"):
+            assert sum(a[key] for a in entry["axes"].values()) == entry[key]
+    temp = rec["memory"]["temp_size_in_bytes"]
+    assert isinstance(temp, int) and temp > 0
     assert rec["memory"]["argument_size_in_bytes"] == _expected_arg_bytes(
         arch, shape, multi_pod)
     # the counted FLOPs cover at least the weights' 2·N per token
@@ -151,3 +170,38 @@ def test_null_collectives_have_no_term():
         rec | {"collectives": {"all-gather": {"count": 1, "bytes": 9e12}}})
     assert with_coll.bottleneck == "collective"
     assert with_coll.collective_s == 9e12 / analysis.NVLINK_BW
+
+
+def test_collectives_priced_by_link():
+    gb = 2**30
+    coll = {"all-gather": {"count": 2, "bytes": 3 * gb, "axes": {
+        "data": {"count": 1, "bytes": gb},
+        "model": {"count": 1, "bytes": 2 * gb}}},
+        "all-reduce": {"count": 1, "bytes": gb, "axes": {
+            "pod": {"count": 1, "bytes": gb}}}}
+    nv, ib = analysis.NVLINK_BW, analysis.IB_BW
+    # 2×4: model's 4 ranks are adjacent, data's 2 are 4 apart: one node
+    close = lambda a, b: math.isclose(a, b, rel_tol=1e-12)  # noqa: E731
+    assert close(analysis.collective_seconds(
+        {"all-gather": coll["all-gather"]},
+        [["data", 2], ["model", 4]]), 3 * gb / nv)
+    # 16×16: model's 16 adjacent ranks span 2 nodes; data's, 16 apart, 16
+    assert close(analysis.collective_seconds(
+        {"all-gather": coll["all-gather"]},
+        [["data", 16], ["model", 16]]), 3 * gb / ib)
+    # 2×16×16: the pod axis's 2 ranks are 256 apart — InfiniBand too
+    axes = [["pod", 2], ["data", 16], ["model", 16]]
+    assert analysis.link_bw(axes, "pod") == ib
+    assert close(analysis.collective_seconds(coll, axes), 4 * gb / ib)
+    # an 8-card model axis alone fits one node
+    assert analysis.link_bw([["data", 32], ["model", 8]], "model") == nv
+    assert analysis.link_bw([["data", 32], ["model", 8]], "data") == ib
+    # a group over a flattened 2×4 (data, model) spans 8 ranks: one node
+    assert analysis.link_bw([["data", 2], ["model", 4]], "data+model") == nv
+    assert analysis.link_bw([["data", 4], ["model", 4]], "data+model") == ib
+    rec = {"arch": "internlm2-1.8b", "shape": "train_4k", "mesh": "16x16",
+           "kind": "train", "cost": {"flops": 1e10},
+           "memory": {"temp_size_in_bytes": 1},
+           "collectives": {"all-gather": coll["all-gather"]},
+           "mesh_axes": [["data", 16], ["model", 16]]}
+    assert close(analysis.load_cell(rec).collective_s, 3 * gb / ib)
