@@ -480,7 +480,14 @@ PARENT_BWD_MS = {
                             "mla": 0.237},
     "ssd_scan_bwd": {"mamba2": 6.499, "zamba2": 3.267,
                      "mamba2_ragged": 1.734, "mamba2_one_chunk": 0.587},
+    # K5 twice on transposed contiguous copies, the copies included: dX +
+    # dW (0.461 + 0.641 and 0.401 + 0.351)
+    "grouped_matmul_bwd": {"gate_up": 1.102, "down": 0.752},
 }
+#: K5's backward against autodiff of K5's plain version in f32: summation
+#: order only (tests/test_torch_cuda.py's F32_ATOL); in bf16 both sum in
+#: f32 and round once: one bf16 ulp of the largest |gradient|
+GMM_BWD_F32_ATOL = 1e-5
 #: K6's backward runs its tile products as 3xTF32 on the tensor cores:
 #: its second bound takes the operations at dense TF32's 495 TFLOP/s
 #: (NVIDIA's data sheet) over the three TF32 products each f32 product
@@ -2809,19 +2816,14 @@ def flash_bwd_work(b, h, kv, s, hd, vd, causal, window):
     return n_bytes, flops, pairs, empty
 
 
-def train_kernel_phase(torch, F, ref, timer, granite_cfg):
-    """K3's backward and K5's two backward products against autodiff of
-    their plain versions: K3 at TRAIN_FLASH_CASES in f32 and bf16, timed in
-    bf16; K5's dX = dY W^T and dW = X^T dY at granite's training shapes
-    (the expert capacity of two 2,048-token sequences, gate/up and down),
-    each on its transposed contiguous copy as the backward makes it.
-    Returns the kernels-line entry of K3's backward: its internlm2 case,
-    with the largest bf16 error of every case."""
+def train_kernel_phase(torch, F, ref, timer):
+    """K3's backward against autodiff of its plain version at
+    TRAIN_FLASH_CASES in f32 and bf16, timed in bf16.  Returns the
+    kernels-line entry of K3's backward: its internlm2 case, with the
+    largest bf16 error of every case."""
     from repro_torch.kernels.flash_attention import (
         bwd_route, flash_attention, flash_attention_bwd,
     )
-    from repro_torch.kernels.grouped_matmul import grouped_matmul
-    from repro_torch.models.blocks import _capacity
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 20)
 
@@ -2934,51 +2936,148 @@ def train_kernel_phase(torch, F, ref, timer, granite_cfg):
             del kr, vr, qs, lib
             torch.cuda.empty_cache()
 
+    return {**results["internlm2"], "max_abs_err": worst}
+
+
+def gmm_bwd_work(e, c, d, f, elem=2):
+    """((bytes, operations) of K5's backward pair, and of one of its
+    products alone): the pair reads x, w and dy and writes dx and dw
+    once, two products of 2 E C D F operations; a product reads its two
+    operands and writes its result once (both products move E (C D + D F
+    + C F) elements)."""
+    xs, ws, ys = e * c * d, e * d * f, e * c * f
+    return ((elem * (2 * xs + 2 * ws + ys), 4 * e * c * d * f),
+            (elem * (xs + ws + ys), 2 * e * c * d * f))
+
+
+def gmm_bwd_check(torch, ref, x, w, dy, what):
+    """K5's backward on (x, w, dy) against autodiff of K5's plain version:
+    finite, dx and dw each within one bf16 ulp of the largest |gradient|
+    (GMM_BWD_F32_ATOL in f32), and two launches bit-equal; returns
+    {"dx": {max_abs_err, tolerance}, "dw": {...}}."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_bwd
+
+    got = grouped_matmul_bwd(x, w, dy)
+    again = grouped_matmul_bwd(x, w, dy)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w)]
+    want = torch.autograd.grad(ref.grouped_matmul_ref(*leaves), leaves, dy)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"grouped_matmul_bwd {what}: two launches differ")
+    errs = {}
+    for name, g, p in zip(("dx", "dw"), got, want):
+        check(torch.isfinite(g.float()).all().item(),
+              f"grouped_matmul_bwd {what}: non-finite {name}")
+        err = (g.float() - p.float()).abs().max().item()
+        atol = (GMM_BWD_F32_ATOL if x.dtype == torch.float32
+                else bf16_ulp(p))
+        check(err <= atol, f"grouped_matmul_bwd {what} {name}: max err "
+              f"{err} > {atol}")
+        errs[name] = {"max_abs_err": err, "tolerance": atol}
+    return errs
+
+
+def gmm_bwd_kernel_phase(torch, ref, timer, granite_cfg):
+    """K5's backward (dX = dY W^T and dW = X^T dY in one launch) at
+    granite's training shapes (the expert capacity of two 2,048-token
+    sequences, gate/up and down) against autodiff of K5's plain version
+    (gmm_bwd_check), in f32 (the CUDA-core route) and bf16 (wgmma), the
+    bf16 pair timed beside torch.bmm's two products, the parent's route
+    and the bounds; K5's forward at the same capacity timed beside
+    torch.bmm, recorded only.  Returns the kernels-line entry: gate/up,
+    with the largest bf16 error of both cases."""
+    from repro_torch.kernels.grouped_matmul import (
+        grouped_matmul, grouped_matmul_bwd,
+    )
+    from repro_torch.models.blocks import _capacity
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 21)
+
+    def rand(dtype, *shape):
+        return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
+
     e, c = granite_cfg.moe.num_experts, 2 * _capacity(granite_cfg, TRAIN_SEQ)
     dm, ff = granite_cfg.d_model, granite_cfg.moe.d_ff_expert
+    results, worst = {}, 0.0
     for case, d, f in (("gate_up", dm, ff), ("down", ff, dm)):
-        dtype = torch.bfloat16
-        x = rand(dtype, e, c, d)
-        w = (rand(torch.float32, e, d, f) / math.sqrt(d)).to(dtype)
-        dy = rand(dtype, e, c, f)
-        _, _, (pdx, pdw) = plain_grads(ref.grouped_matmul_ref, dy, x, w)
-        products = {
-            "dX": (lambda: grouped_matmul(dy, w.transpose(1, 2).contiguous()),
-                   lambda: ref.grouped_matmul_ref(dy, w.transpose(1, 2)),
-                   lambda: torch.bmm(dy, w.transpose(1, 2)), pdx,
-                   (e, c, f, d)),
-            "dW": (lambda: grouped_matmul(x.transpose(1, 2).contiguous(), dy),
-                   lambda: ref.grouped_matmul_ref(x.transpose(1, 2), dy),
-                   lambda: torch.bmm(x.transpose(1, 2), dy), pdw,
-                   (e, d, c, f)),
-        }
-        for prod, (kernel, plain, library, want, shape) in products.items():
-            got = kernel()
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            atol = bf16_ulp(want)  # both sum in f32 and round once
-            check(err <= atol, f"grouped_matmul backward {case} {prod}: "
-                  f"max err {err} > {atol}")
-            ee, cc, dd, fff = shape
-            n_bytes = 2 * (ee * cc * dd + ee * dd * fff + ee * cc * fff)
-            flops = 2 * ee * cc * dd * fff
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            x = rand(dtype, e, c, d)
+            w = (rand(torch.float32, e, d, f) / math.sqrt(d)).to(dtype)
+            dy = rand(dtype, e, c, f)
+            key = str(dtype).replace("torch.", "")
+            errs[key] = gmm_bwd_check(torch, ref, x, w, dy, f"{case} {key}")
+            if dtype == torch.float32:
+                del x, w, dy
+                continue
+            err = max(v["max_abs_err"] for v in errs[key].values())
+            worst = max(worst, err)
+            (n_bytes, flops), (one_bytes, one_flops) = gmm_bwd_work(
+                e, c, d, f)
             bound_ms, bound_by = bound(n_bytes, flops, dtype, torch)
+            one_ms, one_by = bound(one_bytes, one_flops, dtype, torch)
+
+            def library():
+                torch.bmm(dy, w.transpose(1, 2))
+                torch.bmm(x.transpose(1, 2), dy)
+
             late = timer.late
-            r = {"phase": "train-kernel", "name": "grouped_matmul",
-                 "case": f"{case}_{prod}", "shape": list(shape),
-                 "note": "ms includes the transposed contiguous copy the "
-                         "backward makes",
-                 "max_abs_err": err, "tolerance_bf16": atol,
-                 "ms": time_ms(torch, kernel, timer),
-                 "plain_ms": time_ms(torch, plain, timer),
+            r = {"phase": "train-kernel", "name": "grouped_matmul_bwd",
+                 "case": case, "shape": {"E": e, "C": c, "D": d, "F": f},
+                 "errors": errs, "deterministic": True, "max_abs_err": err,
+                 "route": "wgmma",
+                 "ms": time_ms(torch, lambda: grouped_matmul_bwd(x, w, dy),
+                               timer),
+                 "parent_ms": PARENT_BWD_MS["grouped_matmul_bwd"][case],
+                 "host_ms": host_ms(
+                     torch, lambda: grouped_matmul_bwd(x, w, dy)),
+                 "plain_ms": time_ms(
+                     torch, lambda: ref.grouped_matmul_bwd_ref(x, w, dy),
+                     timer),
                  "library_ms": time_ms(torch, library, timer),
+                 "library_dx_ms": time_ms(
+                     torch, lambda: torch.bmm(dy, w.transpose(1, 2)), timer),
+                 "library_dw_ms": time_ms(
+                     torch, lambda: torch.bmm(x.transpose(1, 2), dy), timer),
                  "bound_ms": bound_ms, "bound_by": bound_by,
-                 "bytes": n_bytes, "flops": flops}
+                 "bytes": n_bytes, "flops": flops,
+                 "product_bound_ms": one_ms, "product_bound_by": one_by,
+                 "product_bytes": one_bytes, "product_flops": one_flops,
+                 # K5's forward at the training capacity, not redesigned
+                 # here (sized for serving, C 4 to 256); it moves and
+                 # computes what one backward product does
+                 "forward": {
+                     "ms": time_ms(torch, lambda: grouped_matmul(x, w),
+                                   timer),
+                     "library_ms": time_ms(torch, lambda: torch.bmm(x, w),
+                                           timer),
+                     "bound_ms": one_ms, "bound_by": one_by}}
+            r["library_sum_ms"] = r["library_dx_ms"] + r["library_dw_ms"]
             r["late_windows"] = timer.late - late
             emit(with_rates(r))
-        del x, w, dy, pdx, pdw, got, want, products
+            results[case] = r
+            del x, w, dy
     torch.cuda.empty_cache()
-    return {**results["internlm2"], "max_abs_err": worst}
+    return {**results["gate_up"], "max_abs_err": worst}
+
+
+def check_launched_gmm_bwd_shapes(torch, ref, shapes, what):
+    """Hold K5's backward to autodiff of K5's plain version at every
+    recorded forward shape (its x strides too; dy [E, C, F]
+    contiguous); emit what was done."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 23)
+    done = []
+    for e, c, d, f, dtype, stride in sorted(shapes, key=str):
+        x, w = gmm_inputs(torch, gen, dtype, e, c, d, f, x_stride=stride)
+        dy = torch.randn(e, c, f, generator=gen, device=DEV).to(dtype)
+        errs = gmm_bwd_check(torch, ref, x, w, dy, f"{what} {(e, c, d, f)} "
+                             f"{dtype} x stride {stride}")
+        done.append({"shape": [e, c, d, f],
+                     "dtype": str(dtype).replace("torch.", ""),
+                     "x_stride": list(stride), "errors": errs})
+        del x, w, dy
+    emit({"phase": "kernel-at-launched-shapes", "name": "grouped_matmul_bwd",
+          "of": what, "checked_here": done})
 
 
 def train_ssd_cases(m_cfg, z_cfg):
@@ -3199,14 +3298,15 @@ def check_train_launches(r, n_attn, n_moe, steps, micro, phase,
                          n_mamba=0):
     """K3 forward twice per attention layer of every microbatch (the
     unit's remat recomputes it), its backward once; K5 three times per
-    MoE layer forward, three in the recompute and six backward; K6
-    twice per Mamba-2 layer of the repeated unit, its backward once; no
-    decode kernel."""
+    MoE layer forward and three in the recompute, its backward three
+    times (one launch per expert product); K6 twice per Mamba-2 layer of
+    the repeated unit, its backward once; no decode kernel."""
     la = r["launches"]
     want = {
         "flash_attention": 2 * n_attn * micro * steps,
         "flash_attention_bwd": n_attn * micro * steps,
-        "grouped_matmul": 12 * n_moe * micro * steps,
+        "grouped_matmul": 6 * n_moe * micro * steps,
+        "grouped_matmul_bwd": 3 * n_moe * micro * steps,
         "ssd_scan": 2 * n_mamba * micro * steps,
         "ssd_scan_bwd": n_mamba * micro * steps,
         "paged_decode_attention": 0, "paged_decode_attention_int8": 0,
@@ -3288,8 +3388,8 @@ def train_internlm2(torch, ARCHS, ops, smi):
 def train_granite(torch, ARCHS, ops, ref, smi, gmm_checked):
     """granite-moe-3b-a800m at full width, GRANITE_TRAIN_LAYERS layers,
     GRANITE_TRAIN_STEPS steps of TRAIN_MICRO microbatches: K5 forward,
-    recomputed and backward, counted; every K5 shape it launches (the
-    backward's transposed ones too) held to the plain version."""
+    recomputed and backward, counted; every K5 shape it launches held to
+    the plain version, forward and backward."""
     import dataclasses
     import shutil
 
@@ -3310,12 +3410,9 @@ def train_granite(torch, ARCHS, ops, ref, smi, gmm_checked):
     n = cfg.n_layers
     check_train_launches(r, n, n, GRANITE_TRAIN_STEPS, TRAIN_MICRO,
                          "train-granite")
-    launched = set(shapes)
-    for e, c, d, f, dtype, _ in shapes:  # dX = dY W^T, dW = X^T dY
-        launched.add((e, c, f, d, dtype, (c * f, f, 1)))
-        launched.add((e, d, c, f, dtype, (d * c, c, 1)))
-    check_launched_gmm_shapes(torch, ref, launched, gmm_checked,
+    check_launched_gmm_shapes(torch, ref, shapes, gmm_checked,
                               "train-granite")
+    check_launched_gmm_bwd_shapes(torch, ref, shapes, "train-granite")
     shutil.rmtree(root, ignore_errors=True)
     return r
 
@@ -3443,8 +3540,10 @@ def train_reference(torch, ARCHS, init_model, ops):
                   "rel_err": errs, "launches": launches})
             check(blocks == {"mamba"} or launches["flash_attention_bwd"] > 0,
                   f"train-reference {cfg.name}: K3's backward never ran")
-            check(cfg.moe is None or launches["grouped_matmul"] > 0,
-                  f"train-reference {cfg.name}: K5 never ran")
+            check(cfg.moe is None or (launches["grouped_matmul"] > 0
+                                      and launches["grouped_matmul_bwd"] > 0),
+                  f"train-reference {cfg.name}: K5 or its backward never "
+                  "ran")
             check(not ssm or launches["ssd_scan_bwd"] > 0,
                   f"train-reference {cfg.name}: K6's backward never ran")
             check(errs[worst] <= tol, f"train-reference {cfg.name} {label}: "
@@ -3454,14 +3553,16 @@ def train_reference(torch, ARCHS, init_model, ops):
 
 
 def train_phases(torch, F, ARCHS, init_model, ops, ref, smi, gmm_checked):
-    """train-kernel (K3's and K5's backward, then K6's), train-internlm2,
+    """train-kernel (K3's, K5's and K6's backward), train-internlm2,
     train-granite, train-mamba2 and train-reference; returns (the
-    kernels-line entries of K3's and K6's backward, the training
+    kernels-line entries of K3's, K5's and K6's backward, the training
     runs)."""
     free_memory(torch)
     timer = Timer(torch)
-    kernels = {"flash_attention_bwd": train_kernel_phase(
-        torch, F, ref, timer, ARCHS["granite-moe-3b-a800m"])}
+    kernels = {"flash_attention_bwd": train_kernel_phase(torch, F, ref,
+                                                         timer)}
+    kernels["grouped_matmul_bwd"] = gmm_bwd_kernel_phase(
+        torch, ref, timer, ARCHS["granite-moe-3b-a800m"])
     kernels["ssd_scan_bwd"] = ssd_bwd_kernel_phase(
         torch, ref, timer, train_ssd_cases(ARCHS["mamba2-2.7b"],
                                            ARCHS["zamba2-1.2b"]))
@@ -4018,6 +4119,9 @@ def main(argv=None) -> int:
                                "kernel)",
         "decode_attention": "src/repro/kernels/decode_attention.py:71",
         "grouped_matmul": "src/repro/kernels/moe_gmm.py:41",
+        # no Pallas twin: XLA differentiates the expert einsums
+        "grouped_matmul_bwd": "src/repro/models/blocks.py:365 the expert "
+                              "einsums (their autodiff; no Pallas kernel)",
         "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
         # no Pallas twin: XLA differentiates the jnp twin of K6
         "ssd_scan_bwd": "src/repro/models/blocks.py:430 _ssd_scan (its "
@@ -4030,6 +4134,7 @@ def main(argv=None) -> int:
         "flash_attention_bwd": "flash_attention_bwd.cu",
         "decode_attention": "decode_attention.cu",
         "grouped_matmul": "grouped_matmul.cu",
+        "grouped_matmul_bwd": "grouped_matmul_bwd.cu",
         "ssd_scan": "ssd_scan.cu",
         "ssd_scan_bwd": "ssd_scan_bwd.cu",
     }

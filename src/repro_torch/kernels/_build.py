@@ -58,6 +58,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "grouped_matmul": {
         "launch_grouped_matmul": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P],
     },
+    "grouped_matmul_bwd": {
+        "launch_grouped_matmul_bwd": [*[_P] * 5, *[_I] * 4, _L, _L, _I, _P],
+    },
     "ssd_scan": {
         "launch_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P],

@@ -12,6 +12,8 @@
 // with the sum over D in f32 and one rounding to x's dtype at the end.
 // The TPU kernel demands C, D and F that are multiples of its blocks
 // (moe_gmm.py:52-59); this one takes any sizes and masks the tails.
+// Its backward, both gradients in one launch, is grouped_matmul_bwd.cu
+// (the training path ran this kernel twice on transposed copies before).
 //
 // Bound (3.35 TB/s, 989 TFLOP/s bf16, granite-moe: E 40, D/F 1536/512):
 // every serving shape moves bytes.  Decode (C 4) reads 62.9 MB of w for

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) helpers shared by the port's wgmma kernels
-// (grouped_matmul.cu, flash_attention_bwd.cu): warpgroup products
+// (grouped_matmul.cu, grouped_matmul_bwd.cu, flash_attention_bwd.cu):
+// warpgroup products
 // (wgmma.mma_async) with their fences and shared-memory descriptors,
 // mbarriers, TMA tensor and bulk copies, named barriers, and the host's
 // cuTensorMapEncodeTiled, reached through the runtime (no libcuda link).
@@ -22,6 +23,9 @@
 //   MN-major (the reduced dimension down the rows, tnsp = 1): 8-row groups
 //     1024 bytes apart (SBO), boxes of the next 64 columns LBO bytes
 //     apart; a k16 step moves the start by 16 rows, 2048 bytes.
+// B takes either through the products' TB; a shared A takes either
+// through TA (0 by default, the K-major A of every caller before the
+// grouped backward).
 #pragma once
 
 #include <cuda.h>
@@ -79,9 +83,10 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (64 x 64) (+)= A (64 x 16, shared, K-major) . B (16 x 64, shared,
-// K-major with TB 0, MN-major with TB 1); accumulate 0 overwrites d
-template <int TB>
+// d (64 x 64) (+)= A (64 x 16, shared, K-major with TA 0, MN-major with
+// TA 1) . B (16 x 64, shared, K-major with TB 0, MN-major with TB 1);
+// accumulate 0 overwrites d
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
                                                    uint64_t da, uint64_t db,
                                                    int accumulate) {
@@ -94,14 +99,14 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
       " %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n"
+      "%32, %33, p, 1, 1, %36, %35;\n"
       "}\n"
       : REPRO_D8(0), REPRO_D8(8), REPRO_D8(16), REPRO_D8(24)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
 
-// d (64 x 128) (+)= A (64 x 16, shared, K-major) . B (16 x 128, shared)
-template <int TB>
+// d (64 x 128) (+)= A (64 x 16, shared) . B (16 x 128, shared)
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
                                                     uint64_t da, uint64_t db,
                                                     int accumulate) {
@@ -118,11 +123,46 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
       " %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55,"
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n"
+      "%64, %65, p, 1, 1, %68, %67;\n"
       "}\n"
       : REPRO_D8(0), REPRO_D8(8), REPRO_D8(16), REPRO_D8(24), REPRO_D8(32),
         REPRO_D8(40), REPRO_D8(48), REPRO_D8(56)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
+}
+
+// d (64 x 256) (+)= A (64 x 16, shared) . B (16 x 256, shared)
+template <int TB, int TA = 0>
+__device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128],
+                                                    uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %132, %131;\n"
+      "}\n"
+      : REPRO_D8(0), REPRO_D8(8), REPRO_D8(16), REPRO_D8(24), REPRO_D8(32),
+        REPRO_D8(40), REPRO_D8(48), REPRO_D8(56), REPRO_D8(64), REPRO_D8(72),
+        REPRO_D8(80), REPRO_D8(88), REPRO_D8(96), REPRO_D8(104),
+        REPRO_D8(112), REPRO_D8(120)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
 
 // d (64 x 64) (+)= A (64 x 16, registers) . B (16 x 64, shared)
@@ -232,6 +272,41 @@ __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
       : "memory");
+}
+
+// shared -> global: a box of a 3-D map from 1024-byte aligned shared
+// memory, in the map's swizzle; rows and columns past the tensor are not
+// written.  The issuing thread commits its stores as one bulk group and
+// waits on it before the box is written again (bulk_wait_read) and before
+// the CTA exits (bulk_wait).
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map,
+                                           const void* src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// after a thread's shared-memory writes that a TMA store will read
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ``bytes`` (a multiple of 16) from 16-byte aligned global memory

@@ -8,8 +8,9 @@ Training: the kernels write through ``ctypes`` into tensors autograd
 cannot see into, so a call whose inputs need a gradient goes through a
 ``torch.autograd.Function`` whose backward is a kernel too: K3's forward
 saving its log-sum-exp and K3's hand-written backward
-(``flash_attention_bwd.cu``); K5 forward and, for the gradients, K5
-twice more on transposed copies; K6 forward and K6's hand-written
+(``flash_attention_bwd.cu``); K5 forward and K5's hand-written
+backward (``grouped_matmul_bwd.cu``: both gradients in one launch,
+reading the saved inputs in place); K6 forward and K6's hand-written
 backward (``ssd_scan_bwd.cu``), which recomputes the chunks' states from
 the saved inputs.  A kernel without a backward (K1, K2, K4: decode only)
 raises ``NotImplementedError`` on a CUDA tensor that needs a gradient.
@@ -41,6 +42,7 @@ WRAPPERS = (
     _flash.flash_attention_bwd,
     _decode.decode_attention,
     _gmm.grouped_matmul,
+    _gmm.grouped_matmul_bwd,
     _ssd.ssd_scan,
     _ssd.ssd_scan_bwd,
 )
@@ -126,10 +128,10 @@ class _FlashAttention(torch.autograd.Function):
 
 
 class _GroupedMatmul(torch.autograd.Function):
-    """K5, and K5 for both gradients: dX[e] = dY[e] W[e]^T and
-    dW[e] = X[e]^T dY[e] (the capacity axis the reduction), each on
-    contiguous transposed copies, since K5 takes ``w`` contiguous and
-    ``x`` with contiguous rows."""
+    """K5 with K5's backward: one launch of ``grouped_matmul_bwd`` gives
+    dX[e] = dY[e] W[e]^T and dW[e] = X[e]^T dY[e] (the capacity axis the
+    reduction), reading the saved x (a view with contiguous rows) and w
+    in place: no transposed copy."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -139,10 +141,7 @@ class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        dy = dy.to(x.dtype).contiguous()
-        dx = _gmm.grouped_matmul(dy, w.transpose(1, 2).contiguous())
-        dw = _gmm.grouped_matmul(x.transpose(1, 2).contiguous(), dy)
-        return dx, dw
+        return _gmm.grouped_matmul_bwd(x, w, dy.to(x.dtype).contiguous())
 
 
 class _SsdScan(torch.autograd.Function):

@@ -12,6 +12,7 @@ each row's pages first; the attention versions take grouped-query K/V
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -148,6 +149,20 @@ def grouped_matmul_ref(
     """K5's plain version: ``y[e] = x[e] @ w[e]`` in f32, output in x's
     dtype (``repro.kernels.ref.grouped_matmul_ref``)."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def grouped_matmul_bwd_ref(
+    x: torch.Tensor,  # [E, C, D]
+    w: torch.Tensor,  # [E, D, F]
+    dy: torch.Tensor,  # [E, C, F]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's backward's plain version: ``dx[e] = dy[e] @ w[e]^T`` and
+    ``dw[e] = x[e]^T @ dy[e]``, each in f32 and rounded once to x's dtype:
+    the products autodiff of :func:`grouped_matmul_ref` runs."""
+    xf, wf, dyf = x.float(), w.float(), dy.float()
+    dx = torch.bmm(dyf, wf.transpose(1, 2))
+    dw = torch.bmm(xf.transpose(1, 2), dyf)
+    return dx.to(x.dtype), dw.to(x.dtype)
 
 
 def ssd_scan_ref(

@@ -5,7 +5,8 @@ so that their checks run here before the card.
 internlm2 ``.smoke()``; granite cut to the phase's 4 layers; a batch of
 TRAIN_BATCH × 64 positions) on a gloo one-rank 1×1 mesh, with the card's
 calls stubbed (``torch.cuda.synchronize``/``empty_cache``) and each
-kernel wrapper (K3, K3's backward, K5, K1) replaced by its plain version
+kernel wrapper (K3, K3's backward, K5, K5's backward, K1) replaced by
+its plain version
 that bumps the wrapper's launch counter, and ``ops`` routing CPU tensors
 to the wrappers: every check of the phase runs — the bit-equal losses,
 grad norms, leaves and logits with and without rules, and the launch
@@ -66,6 +67,7 @@ def rehearsal(monkeypatch):
         (_flash, "flash_attention", _flash_plain),
         (_flash, "flash_attention_bwd", _flash_bwd_plain),
         (_gmm, "grouped_matmul", ref.grouped_matmul_ref),
+        (_gmm, "grouped_matmul_bwd", ref.grouped_matmul_bwd_ref),
         (paged_decode, "paged_decode_attention",
          lambda *a, q_per_kv=1: ref.paged_decode_attention_ref(*a)),
     ):

@@ -33,7 +33,9 @@ from repro_torch.kernels.splits import sm_count  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd,
 )
-from repro_torch.kernels.grouped_matmul import grouped_matmul  # noqa: E402
+from repro_torch.kernels.grouped_matmul import (  # noqa: E402
+    grouped_matmul, grouped_matmul_bwd,
+)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_scan, ssd_scan_bwd,
 )
@@ -222,8 +224,9 @@ def test_grouped_wrapper_refuses_ragged_groups(dev):
 
 def test_paged_and_gmm_kernels_are_deterministic(dev):
     """Two launches on the same inputs give the same bits: K1 and K2 merge
-    their splits in split order whichever CTA arrives last, and K5 sums D
-    in one order."""
+    their splits in split order whichever CTA arrives last, K5 sums D in
+    one order, and K5's backward sums F (dx) and C (dw) whole in one CTA
+    each, in one order."""
     q, k, v, table, seq = _grouped(dev, torch.bfloat16, seed=7,
                                    lens=[0, 128, 129, 1000, 77, 513, 1, 64],
                                    g=2, kv=8, hd=128, page=16, width=64)
@@ -241,7 +244,9 @@ def test_paged_and_gmm_kernels_are_deterministic(dev):
     x = _rand(gen, dev, torch.bfloat16, 40, 256, 1536)
     w = _rand(gen, dev, torch.bfloat16, 40, 1536, 512)
     xd = _rand(gen, dev, torch.bfloat16, 40, 4, 1536)
-    gm = [(grouped_matmul(x, w), grouped_matmul(xd, w)) for _ in range(2)]
+    dy = _rand(gen, dev, torch.bfloat16, 40, 256, 512)
+    gm = [(grouped_matmul(x, w), grouped_matmul(xd, w),
+           *grouped_matmul_bwd(x, w, dy)) for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(outs[0] + gm[0], outs[1] + gm[1]):
         assert torch.equal(a, b)
@@ -1016,9 +1021,12 @@ def test_flash_without_a_gradient_launches_as_the_serving_path(dev):
 
 TRAIN_CAPACITY = 512  # granite-moe's _capacity(cfg, 2048)
 GMM_BWD_SHAPES = [  # (E, C, D, F): granite's training gate/up and down
-    # at two sequences a microbatch, ragged smoke shapes
+    # at two sequences a microbatch, ragged smoke shapes, a C that ends
+    # inside a 128-row tile (dx) and a 64-deep step (dw) in both
+    # orientations, and deepseek-v2's gate/up widths at a small C
     (40, 2 * TRAIN_CAPACITY, 1536, 512), (40, 2 * TRAIN_CAPACITY, 512, 1536),
-    (3, 5, 72, 40), (2, 3, 16, 24),
+    (3, 5, 72, 40), (2, 3, 16, 24), (40, 1000, 1536, 512),
+    (40, 200, 512, 1536), (160, 64, 5120, 1536),
 ]
 
 
@@ -1026,9 +1034,9 @@ GMM_BWD_SHAPES = [  # (E, C, D, F): granite's training gate/up and down
 @pytest.mark.parametrize("e,c,d,f", GMM_BWD_SHAPES)
 def test_grouped_matmul_backward_matches_plain(dev, dtype, e, c, d, f):
     """``ops.grouped_matmul`` with inputs that need a gradient: K5 once
-    forward and twice backward (dX = dY W^T, dW = X^T dY on transposed
-    copies); every gradient within one ulp of autodiff of the plain
-    version (both sum in f32 and round once)."""
+    forward and its backward once (dX = dY W^T and dW = X^T dY in one
+    launch, no transposed copy); every gradient within one ulp of
+    autodiff of the plain version (both sum in f32 and round once)."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(e * c + d + f + 1)
     x = torch.randn(e, c, d, generator=g, device=dev).to(dt)
@@ -1037,13 +1045,60 @@ def test_grouped_matmul_backward_matches_plain(dev, dtype, e, c, d, f):
     ops.reset_launch_counts()
     got = _grads(ops.grouped_matmul, dy, x, w)
     torch.cuda.synchronize()
-    assert grouped_matmul.launches == 3
+    assert grouped_matmul.launches == 1
+    assert grouped_matmul_bwd.launches == 1
     with ops.plain_on_card():
         want = _grads(ops.grouped_matmul, dy, x, w)
     for g_, w_ in zip(got, want):
         assert g_.dtype == dt and g_.shape == w_.shape
         torch.testing.assert_close(g_.float(), w_.float(), atol=_atol(w_),
                                    rtol=0)
+    del x, w, dy, got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,d,f", [(5, 6, 64, 24), (40, 300, 1536, 512)])
+def test_grouped_matmul_backward_reads_x_through_strides(dev, dtype, e, c, d,
+                                                         f):
+    """K5's backward on x an [E, C, D] view of [C, E, D] (rows contiguous,
+    strided experts and rows: the dispatch's layout), read in place."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(e + c + d + f)
+    x = _rand(gen, dev, dt, c, e, d).transpose(0, 1)
+    w = (torch.randn(e, d, f, generator=gen, device=dev)
+         / math.sqrt(d)).to(dt)
+    dy = _rand(gen, dev, dt, e, c, f)
+    got = grouped_matmul_bwd(x, w, dy)
+    want = ref.grouped_matmul_bwd_ref(x, w, dy)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert g_.is_contiguous()
+        torch.testing.assert_close(g_.float(), w_.float(), atol=_atol(w_),
+                                   rtol=0)
+
+
+def test_grouped_matmul_bwd_wrapper_rejects_what_the_kernel_cannot_take(dev):
+    x = torch.randn(2, 3, 8, device=dev)
+    w = torch.randn(2, 8, 4, device=dev)
+    dy = torch.randn(2, 3, 4, device=dev)
+    with pytest.raises(TypeError):
+        grouped_matmul_bwd(x, w, dy.bfloat16())
+    with pytest.raises(ValueError, match="chain"):
+        grouped_matmul_bwd(x, torch.randn(2, 6, 4, device=dev), dy)
+    with pytest.raises(ValueError, match="dy"):
+        grouped_matmul_bwd(x, w, torch.randn(2, 3, 5, device=dev))
+    with pytest.raises(ValueError, match="w must be contiguous"):
+        grouped_matmul_bwd(x, w.transpose(1, 2).contiguous().transpose(1, 2),
+                           dy)
+    with pytest.raises(ValueError, match="dy must be contiguous"):
+        grouped_matmul_bwd(x, w, dy.transpose(1, 2).contiguous()
+                           .transpose(1, 2))
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        grouped_matmul_bwd(x.transpose(1, 2).contiguous().transpose(1, 2), w,
+                           dy)
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_matmul_bwd(x, w, dy.cpu())
 
 
 def test_kernels_without_a_backward_raise_when_a_gradient_is_needed(dev):
@@ -1162,7 +1217,8 @@ def _train_batch(cfg, dev, b=2, s=64):
 def test_train_step_through_the_kernels_matches_plain(dev, name):
     """A smoke model's loss and gradient (f32, remat on) through the
     kernels: K3 forward twice per layer (the recompute), its backward
-    once, K5 twelve times per MoE layer; inside ``plain_on_card`` (its
+    once, K5 six times per MoE layer (three forward, three recomputed)
+    and its backward three times; inside ``plain_on_card`` (its
     recompute on autograd's device thread too) no launch.  Every leaf
     non-zero and within 1e-2 of the plain gradient (chip_smoke.py's
     TRAIN_REF_F32_RTOL: the bf16 cotangent rounding compounds last-bit
@@ -1179,7 +1235,8 @@ def test_train_step_through_the_kernels_matches_plain(dev, name):
     n_moe = cfg.n_layers if cfg.moe is not None else 0
     assert flash_attention.launches == 2 * cfg.n_layers
     assert flash_attention_bwd.launches == cfg.n_layers
-    assert grouped_matmul.launches == 12 * n_moe
+    assert grouped_matmul.launches == 6 * n_moe
+    assert grouped_matmul_bwd.launches == 3 * n_moe
     with ops.plain_on_card():
         p_loss, p_grads = value_and_grad(cfg, params, batch)
     torch.cuda.synchronize()

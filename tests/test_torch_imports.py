@@ -98,6 +98,9 @@ def test_port_imports_and_serves_without_jax_or_repro():
         sys.path.insert(0, {SRC!r})
         for name in {_port_modules()!r}:
             importlib.import_module(name)
+        from repro_torch.kernels import ops
+        assert {{"grouped_matmul", "grouped_matmul_bwd", "flash_attention_bwd",
+                 "ssd_scan_bwd"}} <= {{f.__name__ for f in ops.WRAPPERS}}
         from repro_torch.configs import ARCHS
         from repro_torch.models import init_model
         from repro_torch.sched import MursConfig, MursPolicy
