@@ -9,7 +9,7 @@ Phases, each printing one JSON line (or one per kernel or run):
 
 1. ``device`` — the card as ``nvidia-smi`` names it, its power limit, and
    the torch/CUDA versions;
-2. ``build`` — nvcc builds the seven CUDA sources of
+2. ``build`` — nvcc builds the eight CUDA sources of
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once);
 3. ``kernel`` — each kernel against its plain PyTorch version on the card,
    in the working dtype, on inputs drawn from a seeded generator: K1/K2
@@ -157,10 +157,22 @@ Phases, each printing one JSON line (or one per kernel or run):
    parameter leaf's gradient through the kernels against inside
    ``ops.plain_on_card`` (internlm2, granite and mamba2 at 2 layers,
    gemma3's 6-layer unit, zamba2's unit of 5 Mamba-2 blocks and the
-   shared attention, whisper-base whole; f32 and bf16), with K6's
-   backward launched for the Mamba-2 models; ``train-kernel-split``:
-   the device kernels of one call of K3's and of K6's backward at their
-   kernels-line cases, with each one's device time.
+   shared attention, whisper-base and stablelm-1.6b whole, deepseek-v2
+   and qwen1.5-110b (q/k/v biases seeded) at 1 layer, internvl2-26b at 2
+   behind its patch embeddings; f32 and bf16), with K6's backward
+   launched for the Mamba-2 models, K3's backward at MLA's q/k 192 and V
+   128 (padded to 192 by the wrapper) and K5's backward at deepseek-v2's
+   160 experts, every launched K5 and K5-backward shape of the MoE models
+   held to the plain version;
+   ``train-kernel-split``: the device kernels of one call of K3's and of
+   K6's backward at their kernels-line cases, with each one's device
+   time; ``train-deepseek``: the port's ``Trainer`` on deepseek-v2 at
+   full width and 1 of 60 layers (the most one card holds with its
+   AdamW moments), 2 steps at TRAIN_SEQ, launches as train-granite's
+   (K3's backward at q/k 192 and V 128 padded to 192 by the wrapper,
+   K5's at 160 experts), every
+   launched K5 and K5-backward shape held to the plain version, with
+   step seconds, tokens/s, peak memory and every cut in its line.
 16. ``spmd`` — the SPMD rules on a one-card ("data", "model") mesh
    (``launch.mesh.make_debug_mesh``: a one-rank NCCL group):
    granite-moe-3b-a800m at full width and 4 layers, its parameters
@@ -195,6 +207,14 @@ Phases, each printing one JSON line (or one per kernel or run):
    parameters and moments the step updates in place, allocated before
    it), within DRYRUN_MEMORY_RTOL of the measured peak; and the same
    step's peak through the kernels (printed, not checked).
+19. ``examples`` — the port's three device examples
+   (``examples/torch_quickstart.py``, ``torch_serve_multitenant.py``,
+   ``torch_train_lm.py``), each in a process of its own on the card with
+   jax and the JAX package blocked and its launch counters zeroed first:
+   quickstart trains to step 20 and resumes to 25, serve_multitenant
+   completes 7 of 7 under MURS, train_lm's 110 M model runs its 300
+   steps and ends with a finite loss below its first; their launches
+   are counted into the kernels line.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1.  Without a
@@ -202,7 +222,8 @@ CUDA device, or without the port's sources beside this file, it exits
 non-zero and prints no result.
 
 ``--only kernels`` (phase 3), ``--only reference`` (phase 7), ``--only
-train`` (phase 15) or ``--only spmd`` (phases 16 to 18), or several,
+train`` (phase 15), ``--only spmd`` (phases 16 to 18) or ``--only
+examples`` (phase 19), or several,
 stops after those phases and prints neither the kernels line nor the
 result line.  Copied into the root of
 another checkout, such as a parent commit's, the script so holds that
@@ -516,6 +537,25 @@ TRAIN_CKPT_ZLIB_LEVEL = 0
 #: script's budget), the same batch and sequence, 2 steps
 GRANITE_TRAIN_LAYERS = 4
 GRANITE_TRAIN_STEPS = 2
+#: train-deepseek: deepseek-v2-236b at full width and 1 of its 60 layers
+#: (5.02 B parameters: MLA 149 M, 160 routed experts 3.78 B, 2 shared
+#: 47 M, the embedding and head 1.05 B) through the Trainer, bf16
+#: weights and gradients with f32 AdamW moments (12 B a parameter, 60
+#: GB), DEEPSEEK_TRAIN_STEPS steps at TRAIN_SEQ with remat, one
+#: microbatch of the largest batch that fits (DEEPSEEK_TRAIN_CUTS says
+#: why; measured on an NVIDIA H100 80GB HBM3 at 700 W)
+DEEPSEEK_TRAIN_LAYERS = 1
+DEEPSEEK_TRAIN_STEPS = 2
+DEEPSEEK_TRAIN_BATCH = 10
+DEEPSEEK_TRAIN_MICRO = 1
+DEEPSEEK_TRAIN_CUTS = {
+    "microbatches": "1, not train-internlm2's 2: a second microbatch sums "
+                    "the gradients in f32, 20 GB more than the 60 GB of "
+                    "state, and ran out of memory at a batch of 2",
+    "batch": "the largest tried that fits: 10 peaked at 73.58 GiB (4 at "
+             "65.55, 8 at 68.62); 12 ran out of memory allocating its "
+             "9.38 GiB of f32 logits at 69.14 GiB; 11 not tried",
+}
 #: train-reference: the loss and every parameter leaf's gradient through
 #: the kernels against inside ``ops.plain_on_card``, per leaf
 #: ||g - g_plain|| / ||g_plain||, at full width and cut depth, a batch of
@@ -545,14 +585,34 @@ GRANITE_TRAIN_STEPS = 2
 #: 0.077, and each package's own bf16 gradient of zamba2 differs from its
 #: f32 one by 0.10).
 REF_TRAIN_BATCH, REF_TRAIN_SEQ = 2, 640
+#: deepseek-v2 (1 layer), stablelm (24), qwen1.5 (1, its q/k/v biases
+#: seeded) and internvl2 (2, behind its patch embeddings), set from their
+#: first card run (NVIDIA H100 80GB HBM3, 700 W) with about 3-4x its
+#: reading as above: exact 3.1e-6, 5.0e-6, 3.9e-6 and 5.0e-6; f32 2.5e-5,
+#: 7.5e-3, 3.5e-5 and 2.4e-4; bf16 0.031 (at deepseek-v2's routed
+#: ``down``: a token's expert set can differ between the paths, as
+#: granite's), 0.027, 0.010 and 0.011.
 TRAIN_REF_EXACT_RTOL = 1e-4
 TRAIN_REF_EXACT_RTOL_SSM = 1e-3
 TRAIN_REF_F32_RTOL = {"internlm2-1.8b": 6e-4, "gemma3-1b": 8e-3,
                       "granite-moe-3b-a800m": 6e-4, "whisper-base": 8e-3,
-                      "mamba2-2.7b": 1e-2, "zamba2-1.2b": 2e-2}
+                      "mamba2-2.7b": 1e-2, "zamba2-1.2b": 2e-2,
+                      "deepseek-v2-236b": 1e-4, "stablelm-1.6b": 3e-2,
+                      "qwen1.5-110b": 1.5e-4, "internvl2-26b": 1e-3}
 TRAIN_REF_BF16_RTOL = {"internlm2-1.8b": 0.035, "gemma3-1b": 0.062,
                        "granite-moe-3b-a800m": 0.2, "whisper-base": 0.038,
-                       "mamba2-2.7b": 0.1, "zamba2-1.2b": 0.15}
+                       "mamba2-2.7b": 0.1, "zamba2-1.2b": 0.15,
+                       "deepseek-v2-236b": 0.1, "stablelm-1.6b": 0.08,
+                       "qwen1.5-110b": 0.035, "internvl2-26b": 0.035}
+#: train-reference's depth of the models that a card cannot hold whole:
+#: deepseek-v2 at 1 of 60 layers (one MoE layer is 3.97 B parameters: MLA
+#: 149 M, 160 routed experts 3.78 B, 2 shared 47 M; with the embedding
+#: and head's 1.05 B, 20 GB of f32, and the two paths' gradients as much
+#: again each), qwen1.5-110b at 1 of 80 (3.85 B with its 2.49 B of
+#: embedding and head) and internvl2-26b at 2 of 48 (1.92 B); stablelm
+#: runs whole (1.64 B)
+REF_TRAIN_LAYERS = {"deepseek-v2-236b": 1, "qwen1.5-110b": 1,
+                    "internvl2-26b": 2}
 
 
 class CheckFailed(Exception):
@@ -3080,6 +3140,31 @@ def check_launched_gmm_bwd_shapes(torch, ref, shapes, what):
           "of": what, "checked_here": done})
 
 
+@contextlib.contextmanager
+def attention_shapes(ops):
+    """Record (B, H, KV, S, q/k width, V width, the V width K3 and its
+    backward receive, dtype) of every ``ops.flash_attention`` call made
+    inside the block that autograd records (so K3's backward runs at it;
+    the model calls it by this name); yields the set.  For a gradient the
+    wrapper zero-pads a V narrower than q/k (MLA's 128) to q/k's width
+    (192) before the kernels run."""
+    attention = ops.flash_attention
+    seen = set()
+
+    def attend(q, k, v, **kwargs):
+        if ops._needs_grad(q, k, v):
+            hd, vd = q.shape[3], v.shape[-1]
+            seen.add((*q.shape[:2], k.shape[1], q.shape[2], hd, vd,
+                      max(hd, vd), str(q.dtype).replace("torch.", "")))
+        return attention(q, k, v, **kwargs)
+
+    ops.flash_attention = attend
+    try:
+        yield seen
+    finally:
+        ops.flash_attention = attention
+
+
 def train_ssd_cases(m_cfg, z_cfg):
     """(name, B, S, nh, hd, ds, chunk) of K6's backward in train-kernel:
     mamba2's and zamba2's training microbatch (B 2 x S 2,048 of the
@@ -3253,8 +3338,8 @@ def free_memory(torch):
     torch.cuda.empty_cache()
 
 
-def train_run(torch, ops, cfg, tcfg, phase, extra, smi):
-    """One ``Trainer.run`` of ``cfg`` (TRAIN_BATCH x TRAIN_SEQ) with every
+def train_run(torch, ops, cfg, tcfg, phase, extra, smi, batch=TRAIN_BATCH):
+    """One ``Trainer.run`` of ``cfg`` (``batch`` x TRAIN_SEQ) with every
     launch counter zeroed just before and read just after; emits the
     run's line (steps, losses, step seconds, tokens/s, peak memory) and
     checks that every loss is finite."""
@@ -3266,7 +3351,7 @@ def train_run(torch, ops, cfg, tcfg, phase, extra, smi):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()  # the main path's counts start here
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, SHAPES["train_4k"], tcfg, batch=TRAIN_BATCH,
+    trainer = Trainer(cfg, SHAPES["train_4k"], tcfg, batch=batch,
                       seq=TRAIN_SEQ)
     out = trainer.run()
     torch.cuda.synchronize()
@@ -3274,9 +3359,9 @@ def train_run(torch, ops, cfg, tcfg, phase, extra, smi):
     launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
     log = out["log"]
     step_s = [m["step_time_s"] for m in log]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch * TRAIN_SEQ
     r = {"phase": phase, "arch": cfg.name, "layers": cfg.n_layers, **extra,
-         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+         "batch": batch, "seq": TRAIN_SEQ,
          "microbatches": 1 if tcfg.grad_compression else tcfg.microbatches,
          "steps": [m["step"] for m in log],
          "losses": [m["loss"] for m in log],
@@ -3443,6 +3528,61 @@ def train_mamba2(torch, ARCHS, ops, smi):
     return r
 
 
+def train_deepseek(torch, ARCHS, ops, ref, smi, gmm_checked):
+    """deepseek-v2-236b at full width and DEEPSEEK_TRAIN_LAYERS of its 60
+    layers through the port's Trainer: DEEPSEEK_TRAIN_STEPS steps of
+    DEEPSEEK_TRAIN_MICRO microbatches of DEEPSEEK_TRAIN_BATCH x TRAIN_SEQ
+    with remat; K3 forward twice per attention layer of every microbatch
+    and its backward once (at MLA's q/k 192 and V 128, which the wrapper
+    pads to 192), K5 twelve times
+    per MoE layer (at 160 experts); every launched K5 and K5-backward
+    shape held to the plain version.  The line carries every cut."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import TrainerConfig
+
+    full, shape = ARCHS["deepseek-v2-236b"], SHAPES["train_4k"]
+    cfg = dataclasses.replace(full, n_layers=DEEPSEEK_TRAIN_LAYERS,
+                              pattern_repeats=None)
+    root = ROOT / "build" / "chip_train"
+    tcfg = TrainerConfig(
+        steps=DEEPSEEK_TRAIN_STEPS, microbatches=DEEPSEEK_TRAIN_MICRO,
+        ckpt_every=10**9, log_every=1, seed=SEED,
+        ckpt_dir=str(root / "deepseek"), device=DEV,
+        opt=AdamWConfig(warmup_steps=1, total_steps=DEEPSEEK_TRAIN_STEPS))
+    phase = "train-deepseek"
+    cuts = {"layers": [DEEPSEEK_TRAIN_LAYERS, full.n_layers],
+            "batch": [DEEPSEEK_TRAIN_BATCH, shape.global_batch],
+            "seq": [TRAIN_SEQ, shape.seq_len],
+            "microbatches": [DEEPSEEK_TRAIN_MICRO, TRAIN_MICRO],
+            "why": DEEPSEEK_TRAIN_CUTS, "params": cfg.param_count()}
+    with gmm_shapes(ops) as shapes, attention_shapes(ops) as attn:
+        r = train_run(torch, ops, cfg, tcfg, phase, {"cuts": cuts}, smi,
+                      batch=DEEPSEEK_TRAIN_BATCH)
+    n = cfg.n_layers
+    emit({"phase": phase, "attention_shapes": sorted(attn),
+          "gmm_shapes": sorted([*s[:4], str(s[4]).replace("torch.", "")]
+                               for s in shapes)})
+    check(r["steps"] == list(range(1, DEEPSEEK_TRAIN_STEPS + 1)),
+          f"{phase}: logged steps {r['steps']}")
+    check_train_launches(r, n, n, DEEPSEEK_TRAIN_STEPS, DEEPSEEK_TRAIN_MICRO,
+                         phase)
+    mla = (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+           cfg.mla.v_head_dim)
+    check({s[4:7] for s in attn} == {(*mla, mla[0])},
+          f"{phase}: K3's backward at {attn}, not at MLA's q/k and V "
+          f"widths {mla} (V padded to q/k's)")
+    check({s[0] for s in shapes} == {cfg.moe.num_experts},
+          f"{phase}: K5 and its backward at {shapes}")
+    check_launched_gmm_shapes(torch, ref, shapes, gmm_checked, phase)
+    check_launched_gmm_bwd_shapes(torch, ref, shapes, phase)
+    shutil.rmtree(root, ignore_errors=True)
+    return r
+
+
 def _leaf_names(tree, prefix=""):
     """Each leaf's path, in ``tree_leaves`` order (dict keys sorted)."""
     if isinstance(tree, dict):
@@ -3454,20 +3594,57 @@ def _leaf_names(tree, prefix=""):
     return [prefix]
 
 
-def train_reference(torch, ARCHS, init_model, ops):
+def seeded_biases(torch, cfg, params):
+    """qwen1.5's q/k/v biases initialise to zero, so their forward effect
+    would go unchecked: draw them from SEED, 0.5 N(0, 1), as the CPU
+    parity tests do."""
+    if not cfg.qkv_bias:
+        return
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 29)
+    attn = params["layers"]["b0"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        b = attn[name]
+        b.copy_(0.5 * torch.randn(b.shape, generator=gen, device=DEV))
+
+
+def train_reference_cuts(ARCHS):
+    """train-reference's models, each cut in depth to what one card holds
+    with three sets of f32 weights and gradients."""
+    import dataclasses
+
+    def cut(name, **kw):
+        return dataclasses.replace(ARCHS[name], pattern_repeats=None, **kw)
+
+    return [
+        cut("internlm2-1.8b", n_layers=2),
+        dataclasses.replace(ARCHS["gemma3-1b"], n_layers=6, pattern_repeats=1,
+                            suffix_blocks=()),
+        cut("granite-moe-3b-a800m", n_layers=2),
+        ARCHS["whisper-base"],
+        cut("mamba2-2.7b", n_layers=2),
+        dataclasses.replace(ARCHS["zamba2-1.2b"], n_layers=6,
+                            pattern_repeats=1, suffix_blocks=()),
+        *(cut(name, n_layers=n) for name, n in REF_TRAIN_LAYERS.items()),
+        ARCHS["stablelm-1.6b"],
+    ]
+
+
+def train_reference(torch, ARCHS, init_model, ops, ref, gmm_checked):
     """The loss and every parameter leaf's gradient through the kernels
     against inside ``ops.plain_on_card``, at full width: internlm2 and
     granite-moe at 2 layers, gemma3's 6-layer unit (5 local, 1 global),
     whisper-base whole, mamba2 at 2 layers and zamba2's unit (5 Mamba-2
-    blocks and the shared attention); in f32 parameters with
+    blocks and the shared attention), deepseek-v2, qwen1.5 (its q/k/v
+    biases seeded) and internvl2 (its 256 patch embeddings) at
+    REF_TRAIN_LAYERS, stablelm whole; in f32 parameters with
     ``bf16_grad`` the identity, in f32 and in bf16.  Every leaf has a
     non-zero gradient on both paths, within TRAIN_REF_EXACT_RTOL
     (TRAIN_REF_EXACT_RTOL_SSM for the Mamba-2 models),
     TRAIN_REF_F32_RTOL or TRAIN_REF_BF16_RTOL; K3's backward ran where
-    the model attends, K5 where it routes, K6's backward where it
-    scans."""
-    import dataclasses
-
+    the model attends (for MLA at q/k 192 and V 128, which the wrapper
+    pads to 192), K5 and its backward where it routes (deepseek-v2's at
+    160 experts; every MoE model's launched shapes held to the plain
+    version), K6's backward where it scans."""
     import repro_torch.models.layers as layers
     import repro_torch.models.transformer as transformer
     from repro_torch.configs import SHAPES
@@ -3475,23 +3652,10 @@ def train_reference(torch, ARCHS, init_model, ops):
     from repro_torch.train.train_step import value_and_grad
     from repro_torch.tree import tree_leaves
 
-    cuts = [
-        dataclasses.replace(ARCHS["internlm2-1.8b"], n_layers=2,
-                            pattern_repeats=None),
-        dataclasses.replace(ARCHS["gemma3-1b"], n_layers=6, pattern_repeats=1,
-                            suffix_blocks=()),
-        dataclasses.replace(ARCHS["granite-moe-3b-a800m"], n_layers=2,
-                            pattern_repeats=None),
-        ARCHS["whisper-base"],
-        dataclasses.replace(ARCHS["mamba2-2.7b"], n_layers=2,
-                            pattern_repeats=None),
-        dataclasses.replace(ARCHS["zamba2-1.2b"], n_layers=6,
-                            pattern_repeats=1, suffix_blocks=()),
-    ]
     # the residual boundaries (transformer's name) and the Mamba-2
     # block's five (read from layers at call time)
     boundary = (transformer.bf16_grad, layers.bf16_grad)
-    for cfg in cuts:
+    for cfg in train_reference_cuts(ARCHS):
         blocks = set(cfg.block_pattern) | set(cfg.suffix_blocks)
         ssm = cfg.ssm is not None
         cases = (("float32_exact", torch.float32,
@@ -3501,6 +3665,7 @@ def train_reference(torch, ARCHS, init_model, ops):
         for label, dtype, tol in cases:
             free_memory(torch)
             params = init_params(torch, cfg, init_model, dtype=dtype)
+            seeded_biases(torch, cfg, params)
             batch = {k: torch.from_numpy(v).to(DEV) for k, v in _host_batch(
                 cfg, SHAPES["train_4k"], DataConfig(seed=SEED), 0,
                 batch=REF_TRAIN_BATCH, seq=REF_TRAIN_SEQ).items()}
@@ -3508,7 +3673,9 @@ def train_reference(torch, ARCHS, init_model, ops):
                 transformer.bf16_grad = layers.bf16_grad = lambda x: x
             try:
                 ops.reset_launch_counts()
-                loss, grads = value_and_grad(cfg, params, batch)
+                with gmm_shapes(ops) as shapes, \
+                        attention_shapes(ops) as attn:
+                    loss, grads = value_and_grad(cfg, params, batch)
                 torch.cuda.synchronize()
                 launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
                 with unmoved_counters(ops, f"train-reference {cfg.name}"):
@@ -3537,18 +3704,35 @@ def train_reference(torch, ARCHS, init_model, ops):
                   "loss": loss.item(), "plain_loss": p_loss.item(),
                   "leaves": len(errs), "max_rel_err": errs[worst],
                   "worst_leaf": worst, "tolerance": tol,
-                  "rel_err": errs, "launches": launches})
+                  "rel_err": errs, "launches": launches,
+                  "attention_shapes": sorted(attn)})
+            del params, grads, p_grads, batch, loss, p_loss
             check(blocks == {"mamba"} or launches["flash_attention_bwd"] > 0,
                   f"train-reference {cfg.name}: K3's backward never ran")
-            check(cfg.moe is None or (launches["grouped_matmul"] > 0
-                                      and launches["grouped_matmul_bwd"] > 0),
-                  f"train-reference {cfg.name}: K5 or its backward never "
-                  "ran")
+            if cfg.mla is not None:
+                mla = (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+                       cfg.mla.v_head_dim)
+                check({s[4:7] for s in attn} == {(*mla, mla[0])},
+                      f"train-reference {cfg.name}: K3's backward at "
+                      f"{attn}, not at MLA's q/k and V widths {mla} (V "
+                      f"padded to q/k's)")
+            if cfg.moe is not None:
+                check(launches["grouped_matmul"] > 0
+                      and launches["grouped_matmul_bwd"] > 0
+                      and {s[0] for s in shapes} == {cfg.moe.num_experts},
+                      f"train-reference {cfg.name}: K5 launched "
+                      f"{launches['grouped_matmul']} times and its backward "
+                      f"{launches['grouped_matmul_bwd']}, at {shapes}, not "
+                      f"at {cfg.moe.num_experts} experts")
             check(not ssm or launches["ssd_scan_bwd"] > 0,
                   f"train-reference {cfg.name}: K6's backward never ran")
             check(errs[worst] <= tol, f"train-reference {cfg.name} {label}: "
                   f"{worst} gradient {errs[worst]} from the plain one > {tol}")
-            del params, grads, p_grads, batch, loss, p_loss
+            if cfg.moe is not None:
+                check_launched_gmm_shapes(torch, ref, shapes, gmm_checked,
+                                          f"train-reference {label}")
+                check_launched_gmm_bwd_shapes(torch, ref, shapes,
+                                              f"train-reference {label}")
     free_memory(torch)
 
 
@@ -3570,9 +3754,122 @@ def train_phases(torch, F, ARCHS, init_model, ops, ref, smi, gmm_checked):
     runs = train_internlm2(torch, ARCHS, ops, smi)
     runs.append(train_granite(torch, ARCHS, ops, ref, smi, gmm_checked))
     runs.append(train_mamba2(torch, ARCHS, ops, smi))
-    train_reference(torch, ARCHS, init_model, ops)
+    train_reference(torch, ARCHS, init_model, ops, ref, gmm_checked)
+    runs.append(train_deepseek(torch, ARCHS, ops, ref, smi, gmm_checked))
     bwd_split_phase(torch, ARCHS)
     return kernels, runs
+
+
+# ---------------------------------------------------------------- examples
+#: examples: each of the port's device examples runs in a process of its
+#: own through this program, which zeroes the launch counters, runs the
+#: script as ``__main__`` with jax and the JAX package blocked, and
+#: prints the counts on its last line.  It stores checkpoints at zlib
+#: level TRAIN_CKPT_ZLIB_LEVEL, as train-internlm2 does: train_lm writes
+#: a 1.3 GB file of params and f32 moments every 50 steps, which zlib's
+#: level 6 (the codec where zstandard is absent) writes at about 19 MB/s
+EXAMPLE_RUNNER = """
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+from repro_torch.checkpoint import checkpointing
+from repro_torch.kernels import ops
+checkpointing.ZLIB_LEVEL = int(sys.argv[2])
+ops.reset_launch_counts()
+sys.argv = sys.argv[3:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+print("LAUNCHES " + json.dumps({f.__name__: f.launches for f in ops.WRAPPERS}))
+"""
+#: the device examples, each at its defaults; train_lm (300 steps of
+#: 8 x 256 on its 110 M model) checkpoints into a fresh directory
+EXAMPLES = ("torch_quickstart.py", "torch_serve_multitenant.py",
+            "torch_train_lm.py")
+EXAMPLES_TIMEOUT_S = 300
+
+
+def example_checks(name, out, la, work):
+    """The outcome of one example, from its output and launch counts:
+    quickstart trains to 20 and resumes to 25, 25 steps of its 2 layers
+    through K3 and its backward; serve_multitenant completes 7 of 7 under
+    MURS with no failure, through K1 and K3; train_lm runs its 300 steps
+    of 12 layers through K3 and its backward, leaves its six checkpoints
+    and ends with a finite loss below its first."""
+    import re
+
+    decode = ("paged_decode_attention", "paged_decode_attention_int8",
+              "decode_attention")
+    if name == "torch_quickstart.py":
+        check("trained to step 20" in out and "resumed from ckpt → 25" in out,
+              f"examples: {name} did not train to 20 and resume to 25")
+        check(la["flash_attention"] == 2 * 2 * 25
+              and la["flash_attention_bwd"] == 2 * 25
+              and not any(la[k] for k in decode),
+              f"examples: {name} launches {la}")
+        return {}
+    if name == "torch_serve_multitenant.py":
+        murs = re.search(r"^MURS\s+completed (\d+)/7  failed (\d+)", out, re.M)
+        check(murs is not None and murs.groups() == ("7", "0"),
+              f"examples: {name} did not complete 7/7 under MURS")
+        check(la["paged_decode_attention"] > 0 and la["flash_attention"] > 0
+              and la["flash_attention_bwd"] == 0,
+              f"examples: {name} launches {la}")
+        return {}
+    first = re.search(r"first logged: step (\d+)  loss (\S+)", out)
+    final = re.search(r"done: step (\d+)  final loss (\S+)", out)
+    check(first is not None and final is not None,
+          f"examples: {name} printed no first or final loss")
+    first_loss, final_loss = float(first.group(2)), float(final.group(2))
+    ckpts = sorted(p.name for p in (work / "lm").iterdir())
+    check(ckpts == sorted(f"ckpt_{s}.ckpt" for s in range(50, 301, 50)),
+          f"examples: {name} left checkpoints {ckpts}")
+    check(final.group(1) == "300" and math.isfinite(final_loss)
+          and final_loss < first_loss,
+          f"examples: {name} ended at step {final.group(1)} with loss "
+          f"{final_loss} from {first_loss}")
+    check(la["flash_attention"] == 2 * 12 * 300
+          and la["flash_attention_bwd"] == 12 * 300
+          and not any(la[k] for k in decode),
+          f"examples: {name} launches {la}")
+    return {"first_loss": first_loss, "final_loss": final_loss}
+
+
+def examples_phase(smi):
+    """The port's three device examples on the card, one process each, in
+    turn; returns their runs (outcome, seconds and launch counts)."""
+    import os
+    import shutil
+
+    work = ROOT / "build" / "chip_examples"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    runs = []
+    for name in EXAMPLES:
+        flags = (("--ckpt-dir", str(work / "lm"))
+                 if name == "torch_train_lm.py" else ())
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXAMPLE_RUNNER, str(SRC),
+             str(TRAIN_CKPT_ZLIB_LEVEL), str(ROOT / "examples" / name),
+             *flags],
+            capture_output=True, text=True, timeout=EXAMPLES_TIMEOUT_S,
+            cwd=ROOT, env=dict(os.environ, TMPDIR=str(work)))
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        check(proc.returncode == 0 and lines
+              and lines[-1].startswith("LAUNCHES "),
+              f"examples: {name} exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        la = json.loads(lines[-1][len("LAUNCHES "):])
+        out = "\n".join(lines[:-1])
+        r = {"phase": "examples", "example": f"examples/{name}",
+             "flags": list(flags), "wall_s": wall,
+             "output": lines[:-1][-12:], "launches": la,
+             **example_checks(name, out, la, work), "nvidia_smi": smi}
+        emit(r)
+        runs.append(r)
+    shutil.rmtree(work, ignore_errors=True)
+    return runs
 
 
 # -------------------------------------------------------------- SPMD
@@ -3977,10 +4274,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--only", nargs="+",
-        choices=("kernels", "reference", "train", "spmd"),
+        choices=("kernels", "reference", "train", "spmd", "examples"),
         help="run only these phases after the build: every kernel phase, "
              "internlm2's and gemma3's reference phases, the training "
-             "phases, or the spmd and dryrun phases; prints no kernels or "
+             "phases, the spmd and dryrun phases, or the port's examples; "
+             "prints no kernels or "
              "result line (to hold another tree's package, such as a "
              "parent commit's, to this script's inputs and checks)")
     only = set(ap.parse_args(argv).only or ())
@@ -4050,6 +4348,8 @@ def main(argv=None) -> int:
             spmd_phase(torch, ARCHS, init_model, ops, smi)
             dryrun_phase(torch, smi)
             dryrun_memory_phase(torch, ARCHS, init_model, ops, smi)
+        if "examples" in only:
+            examples_phase(smi)
         return 0
 
     simulator_phase()
@@ -4106,6 +4406,8 @@ def main(argv=None) -> int:
     spmd_runs = spmd_phase(torch, ARCHS, init_model, ops, smi)
     dryrun_phase(torch, smi)
     dryrun_memory_phase(torch, ARCHS, init_model, ops, smi)
+    free_memory(torch)
+    example_runs = examples_phase(smi)
     emit_ssd_lines(torch, ssd_lines)
 
     replaces = {
@@ -4139,9 +4441,9 @@ def main(argv=None) -> int:
         "ssd_scan_bwd": "ssd_scan_bwd.cu",
     }
     # launches on the main paths: the sum over the serving runs, the
-    # training runs and the spmd runs, each counted from zero
+    # training runs, the spmd runs and the examples, each counted from zero
     runs = (f32, i8, cluster, g3, moe, *ssm_runs, *zoo, *train_runs,
-            *spmd_runs)
+            *spmd_runs, *example_runs)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{source[name]}",

@@ -45,7 +45,8 @@ def flash_attention(
     width, so V is zero-padded to q's width, the scale stays
     1/sqrt(q's width), and the output is the first ``vd`` columns: the
     zero columns add nothing to the kept ones.  Reading only ``vd``
-    columns of V is later work (ROADMAP Queue 2)."""
+    columns of V is later work (ROADMAP, "Held until a benchmark PR is
+    accepted": kernels slower than their PyTorch call, item 3)."""
     tensors = (q, k, v)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("flash attention kernel: every tensor must be on CUDA")

@@ -9,9 +9,12 @@ a prefill with their front-end inputs and a decode step, the paper's
 simulator runs a job, and a front door over a two-replica cluster
 serves a short trace while writing a KV checkpoint, crashing a replica
 and restoring it — some imports happen lazily at call time, so the run
-is part of the check — and then no ``repro`` module may be loaded.
+is part of the check — and then no ``repro`` module may be loaded.  The
+port's example scripts (``examples/torch_*.py``) import neither.
 """
 
+import ast
+import glob
 import os
 import pkgutil
 import subprocess
@@ -87,6 +90,25 @@ def test_every_module_is_listed():
         "repro_torch.roofline.analysis",
     ):
         assert expected in names
+
+
+def test_examples_import_no_jax_or_repro():
+    """The port's four example scripts import ``repro_torch`` and the
+    standard library, never ``jax`` or a module of the JAX package."""
+    paths = sorted(glob.glob(os.path.join(ROOT, "examples", "torch_*.py")))
+    assert [os.path.basename(p) for p in paths] == [
+        "torch_murs_spark_repro.py", "torch_quickstart.py",
+        "torch_serve_multitenant.py", "torch_train_lm.py"]
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names]
+        names += [n.module for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.module]
+        assert "repro_torch" in {n.split(".")[0] for n in names}, path
+        bad = [n for n in names if n.split(".")[0] in ("jax", "repro")]
+        assert not bad, (path, bad)
 
 
 def test_port_imports_and_serves_without_jax_or_repro():
