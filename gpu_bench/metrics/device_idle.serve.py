@@ -1,0 +1,8 @@
+"""Share of the traced slice in which no operation ran on the device."""
+
+
+def read(rec):
+    t = rec.get("trace")
+    if rec["kind"] != "serve" or not t or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
