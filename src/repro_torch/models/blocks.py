@@ -16,6 +16,7 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..configs.base import ArchConfig
 from ..dist.sharding import (by_roles, is_dtensor, merge_heads, shard,
                               split_heads)
@@ -386,7 +387,8 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     combine adds the gated expert outputs in f32."""
     moe = cfg.moe
     s, d = x.shape[1], x.shape[2]
-    gates = torch.softmax(torch.matmul(x.float(), p["router"]), dim=-1)
+    with obs.span("moe.route"):
+        gates = torch.softmax(torch.matmul(x.float(), p["router"]), dim=-1)
     one_group = s == 1 and not per_row  # the batch's rows are its tokens
     if one_group:
         x, gates = x.transpose(0, 1), gates.transpose(0, 1)
@@ -394,33 +396,36 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     groups, n = gates.shape[0], gates.shape[1]
     # on DTensors each device dispatches and combines its own groups
     g0, folded = {"group": 0}, {"group": 1}  # [E, G·cap, d]: groups in dim 1
-    if is_dtensor(x):
-        xe, slot, tok, gate_w, keep = by_roles(
-            lambda xl, gl: moe_dispatch_row(xl, gl, moe.top_k, cap),
-            (x, gates), (g0, g0), (folded,) + (g0,) * 4,
-            ((moe.num_experts, groups * cap, d),)
-            + ((groups, n * moe.top_k),) * 4)
-    else:
-        xe, slot, tok, gate_w, keep = moe_dispatch_row(x, gates, moe.top_k,
-                                                       cap)
+    with obs.span("moe.dispatch"):
+        if is_dtensor(x):
+            xe, slot, tok, gate_w, keep = by_roles(
+                lambda xl, gl: moe_dispatch_row(xl, gl, moe.top_k, cap),
+                (x, gates), (g0, g0), (folded,) + (g0,) * 4,
+                ((moe.num_experts, groups * cap, d),)
+                + ((groups, n * moe.top_k),) * 4)
+        else:
+            xe, slot, tok, gate_w, keep = moe_dispatch_row(
+                x, gates, moe.top_k, cap)
     # the groups fold into the capacity axis: where they are the batch's
     # sequences (or rows), that axis carries JAX's "batch" pin
     rows_axis = None if one_group else "batch"
-    xe = shard(xe, ("expert", rows_axis, None))
-    h_gate = kernel_ops.grouped_matmul(xe, p["gate"])
-    h_up = kernel_ops.grouped_matmul(xe, p["up"])
-    h = F.silu(h_gate.float()).to(x.dtype) * h_up
-    h = shard(h, ("expert", rows_axis, "expert_mlp"))
-    ye = kernel_ops.grouped_matmul(h, p["down"])
-    if is_dtensor(ye):
-        y = by_roles(lambda *t: _combine(*t, cap, moe.top_k),
-                     (slot, tok, gate_w, keep, ye), (g0,) * 4 + (folded,),
-                     (g0,), ((groups, n, d),))
-    else:
-        y = _combine(slot, tok, gate_w, keep, ye, cap, moe.top_k)
-    if one_group:
-        y = y.transpose(0, 1)
-    return y.to(x.dtype)
+    with obs.span("moe.experts"):
+        xe = shard(xe, ("expert", rows_axis, None))
+        h_gate = kernel_ops.grouped_matmul(xe, p["gate"])
+        h_up = kernel_ops.grouped_matmul(xe, p["up"])
+        h = F.silu(h_gate.float()).to(x.dtype) * h_up
+        h = shard(h, ("expert", rows_axis, "expert_mlp"))
+        ye = kernel_ops.grouped_matmul(h, p["down"])
+    with obs.span("moe.combine"):
+        if is_dtensor(ye):
+            y = by_roles(lambda *t: _combine(*t, cap, moe.top_k),
+                         (slot, tok, gate_w, keep, ye),
+                         (g0,) * 4 + (folded,), (g0,), ((groups, n, d),))
+        else:
+            y = _combine(slot, tok, gate_w, keep, ye, cap, moe.top_k)
+        if one_group:
+            y = y.transpose(0, 1)
+        return y.to(x.dtype)
 
 
 # ================================================================== Mamba-2

@@ -41,6 +41,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from .. import obs
 from ..configs.base import ArchConfig
 from ..dist.sharding import (gather_fsdp, is_dtensor, local_block,
                               merge_heads, on_shards, shard, split_heads)
@@ -588,36 +589,41 @@ def backbone_forward(
     cross = params.get("cross")
     caches: List[Any] = []
 
-    def unit_fn(h, unit_p, unit_cross):
+    def unit_fn(h, unit_p, unit_cross, r):
         # the unit's weights gathered at use, again in the recompute
         unit_p, unit_cross = gather_fsdp((unit_p, unit_cross))
         outs = []
         for i, bt in enumerate(pattern):
-            h, c = _apply_block_full(
-                unit_p[f"b{i}"], cfg, bt, h, shared_body=shared_body,
-                q_offset=q_offset, causal=causal, want_cache=want_cache,
-            )
-            if cross_ctx is not None:
-                h = _cross_attend(unit_cross[f"b{i}"], cfg, h, cross_ctx)
+            with obs.span("model.layer", index=r * len(pattern) + i):
+                h, c = _apply_block_full(
+                    unit_p[f"b{i}"], cfg, bt, h, shared_body=shared_body,
+                    q_offset=q_offset, causal=causal, want_cache=want_cache,
+                )
+                if cross_ctx is not None:
+                    h = _cross_attend(unit_cross[f"b{i}"], cfg, h, cross_ctx)
             outs.append(c)
         return (h, outs) if want_cache else h
 
-    for r in range(cfg.resolved_pattern_repeats):
-        unit_p = _index(params["layers"], r)
-        unit_cross = None
-        if cross_ctx is not None:
-            unit_cross = _index(cross, r)
-        if want_cache:
-            x, outs = unit_fn(x, unit_p, unit_cross)
-            caches.extend(outs)
-        else:
-            x = _remat_call(remat, unit_fn, x, unit_p, unit_cross)
-    for p_blk, bt in zip(params["suffix"], cfg.suffix_blocks):
-        x, c = _apply_block_full(
-            gather_fsdp(p_blk), cfg, bt, x, shared_body=shared_body,
-            q_offset=q_offset, causal=causal, want_cache=want_cache,
-        )
-        caches.append(c)
+    reps = cfg.resolved_pattern_repeats
+    with obs.span("model.forward", entry="backbone"):
+        for r in range(reps):
+            unit_p = _index(params["layers"], r)
+            unit_cross = None
+            if cross_ctx is not None:
+                unit_cross = _index(cross, r)
+            if want_cache:
+                x, outs = unit_fn(x, unit_p, unit_cross, r)
+                caches.extend(outs)
+            else:
+                x = _remat_call(remat, unit_fn, x, unit_p, unit_cross, r)
+        for j, (p_blk, bt) in enumerate(zip(params["suffix"],
+                                            cfg.suffix_blocks)):
+            with obs.span("model.layer", index=reps * len(pattern) + j):
+                x, c = _apply_block_full(
+                    gather_fsdp(p_blk), cfg, bt, x, shared_body=shared_body,
+                    q_offset=q_offset, causal=causal, want_cache=want_cache,
+                )
+            caches.append(c)
     return x, (caches if want_cache else None)
 
 
@@ -694,31 +700,33 @@ def prefill(
     ``extra["frame_embeds"]`` [B, T, d], and its caches carry the
     cross-attention K/V as ``cross_kv`` for :func:`decode_step`.  The
     blocks are :func:`backbone_forward`'s, as in the JAX package."""
-    _check_stack(cfg)
-    x, cross_kv = _front(cfg, params, tokens, extra, remat=False)
-    s = x.shape[1]
-    max_seq = max_seq or s
-    x, layer_caches = backbone_forward(cfg, params, x, want_cache=True,
-                                       cross_ctx=cross_kv)
-    kvs = []
-    for btype, cache in zip(_block_types(cfg), layer_caches):
-        if btype != "mamba":
-            # conv tails and state have no seq axis: no padding.  The seq
-            # axis is -2 of K/V [B, KV, S, hd] and of MLA's [B, S, *]
-            window = _window(cfg, btype)
-            ring = window is not None and cfg.mla is None
-            seq = _cache_len(cfg, btype, max_seq) if ring else max_seq
-            if ring and s > seq:
-                cache = tuple(_to_ring(c, window) for c in cache)
-            elif seq > s:
-                cache = tuple(torch.nn.functional.pad(c, (0, 0, 0, seq - s))
-                              for c in cache)
-        kvs.append(cache)
-    logits = _unembed(cfg, params, x[:, -1:])
-    caches = _caches_from_layers(cfg, kvs)
-    if cross_kv is not None:
-        caches["cross_kv"] = cross_kv
-    return logits, caches
+    with obs.span("model.forward", entry="prefill"):
+        _check_stack(cfg)
+        x, cross_kv = _front(cfg, params, tokens, extra, remat=False)
+        s = x.shape[1]
+        max_seq = max_seq or s
+        x, layer_caches = backbone_forward(cfg, params, x, want_cache=True,
+                                           cross_ctx=cross_kv)
+        kvs = []
+        for btype, cache in zip(_block_types(cfg), layer_caches):
+            if btype != "mamba":
+                # conv tails and state have no seq axis: no padding.  The
+                # seq axis is -2 of K/V [B, KV, S, hd] and of MLA's [B, S, *]
+                window = _window(cfg, btype)
+                ring = window is not None and cfg.mla is None
+                seq = _cache_len(cfg, btype, max_seq) if ring else max_seq
+                if ring and s > seq:
+                    cache = tuple(_to_ring(c, window) for c in cache)
+                elif seq > s:
+                    cache = tuple(
+                        torch.nn.functional.pad(c, (0, 0, 0, seq - s))
+                        for c in cache)
+            kvs.append(cache)
+        logits = _unembed(cfg, params, x[:, -1:])
+        caches = _caches_from_layers(cfg, kvs)
+        if cross_kv is not None:
+            caches["cross_kv"] = cross_kv
+        return logits, caches
 
 
 def _shared_attn_full(p: dict, cfg: ArchConfig, body: dict,
@@ -785,38 +793,42 @@ def decode_step(
     do (the dry-run's decode step).
     """
     _check_stack(cfg)
-    x = _embed(params, tokens)
-    cross_kv = caches.get("cross_kv")
-    for btype, p, cache, pc in _layers(cfg, params, caches):
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        if btype == "mamba":
-            y, _ = blocks.mamba_decode(p["mamba"], cfg, h, cache, pos,
-                                       rows=rows)
-            x = _residual(x, y)
-        elif btype == "shared_attn":
-            body = gather_fsdp(params["shared_body"])
-            inner = torch.matmul(h, p["in_adapter"])
-            g = rms_norm(inner, body["ln1"], cfg.norm_eps)
-            a, _ = blocks.attention_decode(body["attn"], cfg, g, cache, pos,
-                                           rows=rows)
-            inner = _residual(inner, a)
-            inner = _residual(inner, apply_mlp(
-                body["mlp"], rms_norm(inner, body["ln2"], cfg.norm_eps)))
-            x = _residual(x, torch.matmul(inner, p["out_adapter"]))
-        else:
-            if cfg.mla is not None:
-                a, _ = blocks.mla_decode(p["attn"], cfg, h, cache, pos,
-                                         rows=rows)
-            else:
-                a, _ = blocks.attention_decode(
-                    p["attn"], cfg, h, cache, pos,
-                    window=_window(cfg, btype), rows=rows,
-                )
-            x = _residual(x, a)
-            x = _residual(x, _ffn(p, cfg, x, per_row=per_row))
-        if cross_kv is not None and pc is not None:
-            x = _cross_attend(pc, cfg, x, cross_kv)
-    return _unembed(cfg, params, x), caches
+    with obs.span("model.forward", entry="decode_step"):
+        x = _embed(params, tokens)
+        cross_kv = caches.get("cross_kv")
+        layers = _layers(cfg, params, caches)
+        for index, (btype, p, cache, pc) in enumerate(layers):
+            with obs.span("model.layer", index=index):
+                h = rms_norm(x, p["ln1"], cfg.norm_eps)
+                if btype == "mamba":
+                    y, _ = blocks.mamba_decode(p["mamba"], cfg, h, cache,
+                                               pos, rows=rows)
+                    x = _residual(x, y)
+                elif btype == "shared_attn":
+                    body = gather_fsdp(params["shared_body"])
+                    inner = torch.matmul(h, p["in_adapter"])
+                    g = rms_norm(inner, body["ln1"], cfg.norm_eps)
+                    a, _ = blocks.attention_decode(body["attn"], cfg, g,
+                                                   cache, pos, rows=rows)
+                    inner = _residual(inner, a)
+                    inner = _residual(inner, apply_mlp(
+                        body["mlp"],
+                        rms_norm(inner, body["ln2"], cfg.norm_eps)))
+                    x = _residual(x, torch.matmul(inner, p["out_adapter"]))
+                else:
+                    if cfg.mla is not None:
+                        a, _ = blocks.mla_decode(p["attn"], cfg, h, cache,
+                                                 pos, rows=rows)
+                    else:
+                        a, _ = blocks.attention_decode(
+                            p["attn"], cfg, h, cache, pos,
+                            window=_window(cfg, btype), rows=rows,
+                        )
+                    x = _residual(x, a)
+                    x = _residual(x, _ffn(p, cfg, x, per_row=per_row))
+                if cross_kv is not None and pc is not None:
+                    x = _cross_attend(pc, cfg, x, cross_kv)
+        return _unembed(cfg, params, x), caches
 
 
 # ------------------------------------------------------- paged decode (pool)
@@ -879,62 +891,73 @@ def decode_step_paged(
             f"{cfg.name}: the paged path serves stacks of full-attention "
             "blocks only (paged_decode_supported)"
         )
-    x = _embed(params, tokens)
-    B = tokens.shape[0]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    G = H // KV
-    P = page_tokens
-    dev = tokens.device
+    with obs.span("model.forward", entry="decode_step_paged"):
+        x = _embed(params, tokens)
+        B = tokens.shape[0]
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        G = H // KV
+        P = page_tokens
+        dev = tokens.device
 
-    hoff = (torch.arange(H, dtype=torch.int32, device=dev) // G) * n_pool
-    table_flat = (
-        page_table.to(torch.int32).repeat_interleave(H, dim=0)
-        + hoff.repeat(B)[:, None]
-    ).contiguous()
-    lens_flat = seq_lens.to(torch.int32).repeat_interleave(H).contiguous()
-    positions = poss.long()[:, None, None]  # [..., s] with s == 1
-    n_slots = caches["unit"]["b0"][0].shape[1]
-    row = torch.arange(B, device=dev)
-    src = torch.where(row_slot.long() < n_slots, row, torch.zeros_like(row))
-    w_slot = row_slot.long()[src]
-    w_pos = poss.long()[src]
-    s_slot = page_src_slot.long()
-    s_idx = page_src_idx.long()
+        hoff = (torch.arange(H, dtype=torch.int32, device=dev) // G) * n_pool
+        table_flat = (
+            page_table.to(torch.int32).repeat_interleave(H, dim=0)
+            + hoff.repeat(B)[:, None]
+        ).contiguous()
+        lens_flat = seq_lens.to(torch.int32).repeat_interleave(H).contiguous()
+        positions = poss.long()[:, None, None]  # [..., s] with s == 1
+        n_slots = caches["unit"]["b0"][0].shape[1]
+        row = torch.arange(B, device=dev)
+        src = torch.where(row_slot.long() < n_slots, row,
+                          torch.zeros_like(row))
+        w_slot = row_slot.long()[src]
+        w_pos = poss.long()[src]
+        s_slot = page_src_slot.long()
+        s_idx = page_src_idx.long()
 
-    for _, p, (kc, vc), _ in _layers(cfg, params, caches):
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        ap = p["attn"]
-        q, k_new, v_new = blocks._qkv(ap, cfg, h)  # [B, {H,KV}, 1, hd]
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k_new = apply_rope(k_new, positions, cfg.rope_theta)
-        kc[w_slot, :, w_pos] = k_new[src, :, 0]
-        vc[w_slot, :, w_pos] = v_new[src, :, 0]
-        # pool view: pad seq to whole pages, gather page provenance
-        _, _, max_seq, _ = kc.shape
-        lp = -(-max_seq // P)
-        pad = lp * P - max_seq
-        kcp = torch.nn.functional.pad(kc, (0, 0, 0, pad)) if pad else kc
-        vcp = torch.nn.functional.pad(vc, (0, 0, 0, pad)) if pad else vc
-        kcr = kcp.reshape(n_slots, KV, lp, P, hd)
-        vcr = vcp.reshape(n_slots, KV, lp, P, hd)
-        k_pool = kcr[s_slot, :, s_idx]  # [n_pool, KV, P, hd]
-        v_pool = vcr[s_slot, :, s_idx]
-        k_pool = k_pool.transpose(0, 1).reshape(KV * n_pool, P, hd)
-        v_pool = v_pool.transpose(0, 1).reshape(KV * n_pool, P, hd)
-        qf = q[:, :, 0, :].reshape(B * H, hd).contiguous()
-        if int8:
-            k_codes, k_scales = _quantize_pool_int8(k_pool)
-            v_codes, v_scales = _quantize_pool_int8(v_pool)
-            out = kernel_ops.paged_decode_attention_int8(
-                qf, k_codes, v_codes, k_scales, v_scales,
-                table_flat, lens_flat, q_per_kv=G,
-            )
-        else:
-            out = kernel_ops.paged_decode_attention(
-                qf, k_pool.contiguous(), v_pool.contiguous(),
-                table_flat, lens_flat, q_per_kv=G,
-            )
-        out = out.reshape(B, 1, H * hd)
-        x = x + torch.matmul(out, ap["wo"])
-        x = x + _ffn(p, cfg, x)
-    return _unembed(cfg, params, x), caches
+        layers = _layers(cfg, params, caches)
+        for index, (_, p, (kc, vc), _) in enumerate(layers):
+            with obs.span("model.layer", index=index):
+                h = rms_norm(x, p["ln1"], cfg.norm_eps)
+                ap = p["attn"]
+                # [B, {H,KV}, 1, hd]
+                q, k_new, v_new = blocks._qkv(ap, cfg, h)
+                q = apply_rope(q, positions, cfg.rope_theta)
+                k_new = apply_rope(k_new, positions, cfg.rope_theta)
+                kc[w_slot, :, w_pos] = k_new[src, :, 0]
+                vc[w_slot, :, w_pos] = v_new[src, :, 0]
+                with obs.span("model.pool_gather"):
+                    # pool view: pad seq to whole pages, gather page
+                    # provenance
+                    _, _, max_seq, _ = kc.shape
+                    lp = -(-max_seq // P)
+                    pad = lp * P - max_seq
+                    kcp = (torch.nn.functional.pad(kc, (0, 0, 0, pad))
+                           if pad else kc)
+                    vcp = (torch.nn.functional.pad(vc, (0, 0, 0, pad))
+                           if pad else vc)
+                    kcr = kcp.reshape(n_slots, KV, lp, P, hd)
+                    vcr = vcp.reshape(n_slots, KV, lp, P, hd)
+                    k_pool = kcr[s_slot, :, s_idx]  # [n_pool, KV, P, hd]
+                    v_pool = vcr[s_slot, :, s_idx]
+                    k_pool = k_pool.transpose(0, 1).reshape(
+                        KV * n_pool, P, hd).contiguous()
+                    v_pool = v_pool.transpose(0, 1).reshape(
+                        KV * n_pool, P, hd).contiguous()
+                qf = q[:, :, 0, :].reshape(B * H, hd).contiguous()
+                if int8:
+                    k_codes, k_scales = _quantize_pool_int8(k_pool)
+                    v_codes, v_scales = _quantize_pool_int8(v_pool)
+                    out = kernel_ops.paged_decode_attention_int8(
+                        qf, k_codes, v_codes, k_scales, v_scales,
+                        table_flat, lens_flat, q_per_kv=G,
+                    )
+                else:
+                    out = kernel_ops.paged_decode_attention(
+                        qf, k_pool, v_pool, table_flat, lens_flat,
+                        q_per_kv=G,
+                    )
+                out = out.reshape(B, 1, H * hd)
+                x = x + torch.matmul(out, ap["wo"])
+                x = x + _ffn(p, cfg, x)
+        return _unembed(cfg, params, x), caches

@@ -25,6 +25,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from .. import obs
 from ..dist.sharding import is_dtensor
 from ..tree import tree_flatten, tree_leaves, tree_map
 
@@ -98,34 +99,35 @@ def update(
 ) -> tuple[PyTree, AdamWState, torch.Tensor]:
     """Returns (params, state, grad_norm), ``params`` and the moments
     updated in place (the same tensors as given)."""
-    gnorm = global_norm(grads)
-    scale = None
-    if cfg.clip_norm is not None:
-        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    step = state.step + 1
-    lr = schedule(cfg, step)
-    stepf = step.to(torch.float32)
-    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
-                                       device=stepf.device), stepf)
-    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
-                                       device=stepf.device), stepf)
-    g_leaves, treedef = tree_flatten(grads)
-    p_leaves = _leaves_like(treedef, params)
-    m_leaves = _leaves_like(treedef, state.m)
-    v_leaves = _leaves_like(treedef, state.v)
-    for leaves in zip(g_leaves, p_leaves, m_leaves, v_leaves):
-        for g, p, m, v in _pieces(*leaves):
-            g = g.float()
-            if scale is not None:
-                g = g * scale
-            m.copy_(cfg.b1 * m + (1.0 - cfg.b1) * g)
-            v.copy_(cfg.b2 * v + (1.0 - cfg.b2) * g * g)
-            del g
-            upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-            pf = p.float()
-            upd = upd + cfg.weight_decay * pf
-            p.copy_((pf - lr * upd).to(p.dtype))
-    return params, AdamWState(step=step, m=state.m, v=state.v), gnorm
+    with obs.span("train.optimizer"):
+        gnorm = global_norm(grads)
+        scale = None
+        if cfg.clip_norm is not None:
+            scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+        step = state.step + 1
+        lr = schedule(cfg, step)
+        stepf = step.to(torch.float32)
+        b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
+                                           device=stepf.device), stepf)
+        b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
+                                           device=stepf.device), stepf)
+        g_leaves, treedef = tree_flatten(grads)
+        p_leaves = _leaves_like(treedef, params)
+        m_leaves = _leaves_like(treedef, state.m)
+        v_leaves = _leaves_like(treedef, state.v)
+        for leaves in zip(g_leaves, p_leaves, m_leaves, v_leaves):
+            for g, p, m, v in _pieces(*leaves):
+                g = g.float()
+                if scale is not None:
+                    g = g * scale
+                m.copy_(cfg.b1 * m + (1.0 - cfg.b1) * g)
+                v.copy_(cfg.b2 * v + (1.0 - cfg.b2) * g * g)
+                del g
+                upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+                pf = p.float()
+                upd = upd + cfg.weight_decay * pf
+                p.copy_((pf - lr * upd).to(p.dtype))
+        return params, AdamWState(step=step, m=state.m, v=state.v), gnorm
 
 
 def _pieces(g, p, m, v) -> list:

@@ -109,7 +109,7 @@ class ReplicaCrash(RuntimeError):
 def _merge_tick_costs(stats: List[dict]) -> dict:
     """Cluster view of the replicas' roofline tick-cost distributions
     (same shape as ``ServingEngine.tick_cost_stats``: modeled seconds,
-    tick-weighted mean, min/max envelope, distinct-value count)."""
+    tick-weighted mean, min/max envelope)."""
     ticks = sum(s["ticks"] for s in stats)
     return {
         "source": "roofline",
@@ -122,7 +122,6 @@ def _merge_tick_costs(stats: List[dict]) -> dict:
             (s["min_s"] for s in stats if s["ticks"]), default=0.0
         ),
         "max_s": max((s["max_s"] for s in stats), default=0.0),
-        "distinct": max((s["distinct"] for s in stats), default=0),
         "paged_decode_ticks": sum(s["paged_decode_ticks"] for s in stats),
     }
 

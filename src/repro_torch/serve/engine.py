@@ -73,6 +73,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.memory_manager import MemoryPool
 from repro_torch.core.sampler import Sampler
@@ -483,6 +484,11 @@ class ServingEngine:
         self.proactive_demotions = 0  # pages demoted by the policy hint
         self.stall_ticks = 0  # request-ticks lost to non-resident KV
         self.transfer_stall_ticks = 0  # … of which waiting on tier DMA
+        #: bytes the tiers really copy between device and host: page
+        #: payloads captured at suspension and demotion, installed back
+        #: at promotion
+        self.tier_d2h_bytes = 0
+        self.tier_h2d_bytes = 0
         #: per-page KV payloads captured when a request froze (slot still
         #: attached) — handed to the host tier when its pages demote, so
         #: the int8 round-trip compresses REAL values, not placeholders
@@ -511,7 +517,6 @@ class ServingEngine:
         self._tick_cost_sum = 0.0
         self._tick_cost_min = float("inf")
         self._tick_cost_max = 0.0
-        self._tick_cost_values: set = set()  # bounded distinct sample
         self._tick_prefill_tokens = 0
         self._tick_decode_tokens = 0
         #: KV snapshots backing cached prefixes: snap_key (the caching
@@ -1202,8 +1207,7 @@ class ServingEngine:
         """Distribution of the roofline-derived tick costs this engine
         paid — the bench/gate evidence that costs are DERIVED (seconds,
         varying with the work each tick actually did), not hand-set
-        constants.  ``distinct`` counts unique values seen (capped at 64
-        samples); > 1 means the cost tracked the load."""
+        constants: ``min_s < max_s`` means the cost tracked the load."""
         n = self._tick_cost_count
         return {
             "source": "roofline",
@@ -1211,7 +1215,6 @@ class ServingEngine:
             "mean_s": (self._tick_cost_sum / n) if n else 0.0,
             "min_s": self._tick_cost_min if n else 0.0,
             "max_s": self._tick_cost_max,
-            "distinct": len(self._tick_cost_values),
             "paged_decode_ticks": self.paged_decode_ticks,
         }
 
@@ -1246,43 +1249,46 @@ class ServingEngine:
 
     # ------------------------------------------------------------ accounting
     def _update_pool(self) -> None:
-        if self.ecfg.legacy_bookkeeping:
-            for rid, req in self._live.items():
-                if req.state in (
-                    "prefill", "decoding", "suspended", "offloaded"
-                ):
-                    # offloaded requests still own HBM bytes until the
-                    # last page demotes (and again as promotions land) —
-                    # skipping them leaves stale live entries pinning the
-                    # pool
-                    self.pool.set_live(rid, self.kv.request_bytes(rid))
-        else:
-            # only owners whose attribution actually changed re-sync:
-            # every allocator refcount event (incl. co-holders of shared
-            # pages) and every state transition marks its rid dirty
-            dirty = self.kv.drain_dirty()
-            if self._pool_dirty:
-                dirty |= self._pool_dirty
-                self._pool_dirty = set()
-            for rid in dirty:
-                req = self._live.get(rid)
-                if req is not None and req.state in (
-                    "prefill", "decoding", "suspended", "offloaded"
-                ):
-                    self.pool.set_live(rid, self.kv.request_bytes(rid))
-        if self.ecfg.prefix_cache:
-            # cold cached prefixes are live pool bytes too — the policy
-            # must see them (and eviction must relieve them)
-            self.pool.set_live(CACHE_OWNER, self.kv.cache_bytes)
-        self.peak_used_fraction = max(
-            self.peak_used_fraction, self.pool.used_fraction
-        )
-        self.kv.ledger.sample_peaks()
-        if self.pool.capacity > 0:
-            demand = (
-                self.pool.used_bytes - self.kv.reclaimable_bytes
-            ) / self.pool.capacity
-            self.peak_demand_fraction = max(self.peak_demand_fraction, demand)
+        with obs.span("engine.update_pool"):
+            if self.ecfg.legacy_bookkeeping:
+                for rid, req in self._live.items():
+                    if req.state in (
+                        "prefill", "decoding", "suspended", "offloaded"
+                    ):
+                        # offloaded requests still own HBM bytes until the
+                        # last page demotes (and again as promotions land) —
+                        # skipping them leaves stale live entries pinning the
+                        # pool
+                        self.pool.set_live(rid, self.kv.request_bytes(rid))
+            else:
+                # only owners whose attribution actually changed re-sync:
+                # every allocator refcount event (incl. co-holders of shared
+                # pages) and every state transition marks its rid dirty
+                dirty = self.kv.drain_dirty()
+                if self._pool_dirty:
+                    dirty |= self._pool_dirty
+                    self._pool_dirty = set()
+                for rid in dirty:
+                    req = self._live.get(rid)
+                    if req is not None and req.state in (
+                        "prefill", "decoding", "suspended", "offloaded"
+                    ):
+                        self.pool.set_live(rid, self.kv.request_bytes(rid))
+            if self.ecfg.prefix_cache:
+                # cold cached prefixes are live pool bytes too — the policy
+                # must see them (and eviction must relieve them)
+                self.pool.set_live(CACHE_OWNER, self.kv.cache_bytes)
+            self.peak_used_fraction = max(
+                self.peak_used_fraction, self.pool.used_fraction
+            )
+            self.kv.ledger.sample_peaks()
+            if self.pool.capacity > 0:
+                demand = (
+                    self.pool.used_bytes - self.kv.reclaimable_bytes
+                ) / self.pool.capacity
+                self.peak_demand_fraction = max(
+                    self.peak_demand_fraction, demand
+                )
 
     def _pressure_plan(self) -> PressurePlan:
         """Ask the policy how to relieve pressure, handing it the
@@ -1545,15 +1551,26 @@ class ServingEngine:
             return None
         return torch.cat(parts).cpu().numpy()
 
+    def _tier_payload(
+        self, slot: int, page_index: int
+    ) -> Optional[np.ndarray]:
+        """:meth:`_page_payload` of a page leaving for the tiers, its bytes
+        counted in ``tier_d2h_bytes``."""
+        payload = self._page_payload(slot, page_index)
+        if payload is not None:
+            self.tier_d2h_bytes += payload.nbytes
+        return payload
+
     def _install_page_payload(
         self, slot: int, page_index: int, payload: np.ndarray
-    ) -> None:
+    ) -> int:
         """Inverse of :meth:`_page_payload`: write the (dequantized)
         page span back into the slot cache, in place — the lossy int8
-        round-trip lands in the values decode actually attends over."""
+        round-trip lands in the values decode actually attends over.
+        Returns the bytes copied to the device."""
         a, b = self._page_span(page_index)
         if a >= b:
-            return
+            return 0
         vals = torch.from_numpy(np.asarray(payload, np.float32)).to(
             self.device
         )
@@ -1569,6 +1586,7 @@ class ServingEngine:
             n = span.numel()
             span.copy_(vals[off:off + n].view(span.shape))
             off += n
+        return vals.numel() * vals.element_size()
 
     # -------------------------------------------------------------- prefill
     def _install_prefill(self, req: Request, tokens: List[int]) -> Any:
@@ -1708,7 +1726,9 @@ class ServingEngine:
                 # from the snapshot — no prefill compute, no budget, so
                 # this runs even when a long cold prefill drained the
                 # budget (an exact hit must never queue behind compute)
-                self._install_cached_prefix(req)
+                with obs.span("engine.prefill.request", rid=rid,
+                              tokens=req.cached_tokens, path="cached"):
+                    self._install_cached_prefix(req)
                 if req.state != "prefill":
                     continue  # exact hit: first token already sampled
             if budget <= 0:
@@ -1716,20 +1736,24 @@ class ServingEngine:
             feed = req.feed_tokens
             if req.pos == 0:
                 if len(feed) <= budget:
-                    self.kv.grow_to(rid, len(feed))
-                    self._cow_range(req, 0, len(feed))
-                    logits = self._install_prefill(req, feed)
-                    budget -= len(feed)
-                    self._tick_prefill_tokens += len(feed)
-                    self._finish_prefill(req, logits)
+                    with obs.span("engine.prefill.request", rid=rid,
+                                  tokens=len(feed), path="full"):
+                        self.kv.grow_to(rid, len(feed))
+                        self._cow_range(req, 0, len(feed))
+                        logits = self._install_prefill(req, feed)
+                        budget -= len(feed)
+                        self._tick_prefill_tokens += len(feed)
+                        self._finish_prefill(req, logits)
                 else:
                     # power-of-two first chunk: a partial leftover budget
                     # still starts the prompt (no starvation behind short
                     # traffic) while keeping the compiled shapes bounded
                     w = 1 << (budget.bit_length() - 1)
-                    self.kv.grow_to(rid, w)
-                    self._cow_range(req, 0, w)
-                    self._install_prefill(req, feed[:w])
+                    with obs.span("engine.prefill.request", rid=rid,
+                                  tokens=w, path="first_chunk"):
+                        self.kv.grow_to(rid, w)
+                        self._cow_range(req, 0, w)
+                        self._install_prefill(req, feed[:w])
                     budget -= w
                     self._tick_prefill_tokens += w
                     chunked = True
@@ -1738,19 +1762,20 @@ class ServingEngine:
                 budget -= take
                 self._tick_prefill_tokens += max(take, 0)
                 last = None
-                if take > 0:
-                    self.kv.grow_to(rid, req.pos + take)
-                    self._cow_range(req, req.pos, req.pos + take)
-                    self.kv.note_write(
-                        rid, req.pos, req.pos + take, self.tick
-                    )
                 # one continuation call per tick: the port runs eagerly, so
                 # the JAX engine's power-of-two buckets (a bounded set of
                 # compiled scan widths) have nothing to bound here
                 if take > 0:
-                    last = self._chunk_scan(
-                        feed[req.pos:req.pos + take], req.slot, req.pos
-                    )
+                    with obs.span("engine.prefill.request", rid=rid,
+                                  tokens=take, path="continuation"):
+                        self.kv.grow_to(rid, req.pos + take)
+                        self._cow_range(req, req.pos, req.pos + take)
+                        self.kv.note_write(
+                            rid, req.pos, req.pos + take, self.tick
+                        )
+                        last = self._chunk_scan(
+                            feed[req.pos:req.pos + take], req.slot, req.pos
+                        )
                     req.pos += take
                 chunked = True
                 if not req.prefilling and last is not None:
@@ -1782,37 +1807,40 @@ class ServingEngine:
         if not active:
             return 0.0
         self._tick_decode_tokens = len(active)
-        kv_bytes_read = sum(
-            self.kv.request_bytes(req.request_id) for _, req in active
-        )
-        plan = (
-            self._paged_plan(active)
-            if self._paged_ok and self.kv.n_pages > 0
-            else None
-        )
+        with obs.span("engine.decode.plan"):
+            kv_bytes_read = sum(
+                self.kv.request_bytes(req.request_id) for _, req in active
+            )
+            plan = (
+                self._paged_plan(active)
+                if self._paged_ok and self.kv.n_pages > 0
+                else None
+            )
         if plan is not None:
             nxt = self._decode_paged_batch(active, plan)
         else:
             nxt = self._decode_dense_batch(active)
-        for r, (i, req) in enumerate(active):
-            req.pos += 1
-            self.kv.grow_to(req.request_id, req.pos)
-            # the KV write landed at position pos-1: if that page is shared
-            # (an exact-prompt hit decoding past its cached terminal page),
-            # split it first — shared pages are never mutated.  The paged
-            # path addressed this page through a synthetic pool id, so
-            # this is the FIRST allocator mutation either way: both decode
-            # paths drive the same allocator event sequence.
-            self.kv.make_private(
-                req.request_id, (req.pos - 1) // self.kv.page_tokens
-            )
-            self.kv.note_write(
-                req.request_id, req.pos - 1, req.pos, self.tick
-            )
-            req.generated.append(int(nxt[r]))
-            if req.done:
-                self._finish(req)
-        self._update_pool()
+        with obs.span("engine.decode.bookkeeping"):
+            for r, (i, req) in enumerate(active):
+                req.pos += 1
+                self.kv.grow_to(req.request_id, req.pos)
+                # the KV write landed at position pos-1: if that page is
+                # shared (an exact-prompt hit decoding past its cached
+                # terminal page), split it first — shared pages are never
+                # mutated.  The paged path addressed this page through a
+                # synthetic pool id, so this is the FIRST allocator
+                # mutation either way: both decode paths drive the same
+                # allocator event sequence.
+                self.kv.make_private(
+                    req.request_id, (req.pos - 1) // self.kv.page_tokens
+                )
+                self.kv.note_write(
+                    req.request_id, req.pos - 1, req.pos, self.tick
+                )
+                req.generated.append(int(nxt[r]))
+                if req.done:
+                    self._finish(req)
+            self._update_pool()
         return kv_bytes_read
 
     def _decode_dense_batch(self, active) -> np.ndarray:
@@ -1826,19 +1854,21 @@ class ServingEngine:
         no expert capacity from active ones.
         Returns next tokens aligned with ``active`` order.
         """
-        n = self.ecfg.n_slots
-        tokens = np.zeros((n, 1), np.int32)
-        poss = np.zeros((n,), np.int32)
-        rows = np.asarray([i for i, _ in active], np.int32)
-        for i, req in active:
-            tokens[i, 0] = req.generated[-1]
-            poss[i] = req.pos
-        tokens, poss, rows = self._to_device(tokens, poss, rows)
+        with obs.span("engine.decode.plan"):
+            n = self.ecfg.n_slots
+            tokens = np.zeros((n, 1), np.int32)
+            poss = np.zeros((n,), np.int32)
+            rows = np.asarray([i for i, _ in active], np.int32)
+            for i, req in active:
+                tokens[i, 0] = req.generated[-1]
+                poss[i] = req.pos
+            tokens, poss, rows = self._to_device(tokens, poss, rows)
         logits, _ = decode_step(
             self.cfg, self.params, tokens, self._caches, poss,
             rows=rows.long(),
         )
-        nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
+        with obs.span("engine.decode.sync"):
+            nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
         return nxt[[i for i, _ in active]]
 
     def _paged_plan(self, active):
@@ -1869,45 +1899,48 @@ class ServingEngine:
         finish→resume chain) must see the same row order as the dense
         oracle.
         """
-        P = self.kv.page_tokens
-        # longest first: the trimmed width follows row 0, so the kernel's
-        # page sweep never runs past the longest resident request
-        order, (tables, src_slot, src_idx, n_pool) = paged_plan
-        rows = len(order)
-        # this tick's KV write lands in page pos // P, which may not exist
-        # yet (page boundary) or may be shared (exact-prompt hit on a
-        # cached terminal page).  Address it through a per-row SYNTHETIC
-        # pool id mapped to the row's own slot cache instead of mutating
-        # the allocator here: grow/COW/release then run ONLY in the shared
-        # post-decode bookkeeping, in exactly the dense oracle's order —
-        # the kernel wiring must not perturb the allocator event sequence
-        # the scheduling policy observes.
-        n_pool2 = 1 << max(n_pool + rows - 1, 0).bit_length()
-        src_slot = np.pad(src_slot, (0, n_pool2 - n_pool))
-        src_idx = np.pad(src_idx, (0, n_pool2 - n_pool))
-        need = max(req.pos // P + 1 for _, req in order)
-        w = 1 << max(max(need, tables.shape[1]) - 1, 0).bit_length()
-        b = 1 << (rows - 1).bit_length()  # pow2 rows: the JAX engine's shapes
-        tok = np.zeros((b, 1), np.int32)
-        # pad rows carry slot == n_slots (see decode_step_paged)
-        row_slot = np.full((b,), self.ecfg.n_slots, np.int32)
-        poss = np.zeros((b,), np.int32)
-        lens = np.zeros((b,), np.int32)
-        tab = np.zeros((b, w), np.int32)
-        for r, (slot, req) in enumerate(order):
-            tok[r, 0] = req.generated[-1]
-            row_slot[r] = slot
-            poss[r] = req.pos
-            lens[r] = req.pos + 1  # dense decode attends k_pos <= pos
-            tab[r, : tables.shape[1]] = tables[r]
-            wp = req.pos // P
-            sid = n_pool + r
-            tab[r, wp] = sid
-            src_slot[sid] = slot
-            src_idx[sid] = wp
-        tok, row_slot, poss, tab, lens, src_slot, src_idx = self._to_device(
-            tok, row_slot, poss, tab, lens, src_slot, src_idx
-        )
+        with obs.span("engine.decode.plan"):
+            P = self.kv.page_tokens
+            # longest first: the trimmed width follows row 0, so the kernel's
+            # page sweep never runs past the longest resident request
+            order, (tables, src_slot, src_idx, n_pool) = paged_plan
+            rows = len(order)
+            # this tick's KV write lands in page pos // P, which may not exist
+            # yet (page boundary) or may be shared (exact-prompt hit on a
+            # cached terminal page).  Address it through a per-row SYNTHETIC
+            # pool id mapped to the row's own slot cache instead of mutating
+            # the allocator here: grow/COW/release then run ONLY in the shared
+            # post-decode bookkeeping, in exactly the dense oracle's order —
+            # the kernel wiring must not perturb the allocator event sequence
+            # the scheduling policy observes.
+            n_pool2 = 1 << max(n_pool + rows - 1, 0).bit_length()
+            src_slot = np.pad(src_slot, (0, n_pool2 - n_pool))
+            src_idx = np.pad(src_idx, (0, n_pool2 - n_pool))
+            need = max(req.pos // P + 1 for _, req in order)
+            w = 1 << max(max(need, tables.shape[1]) - 1, 0).bit_length()
+            # pow2 rows: the JAX engine's shapes
+            b = 1 << (rows - 1).bit_length()
+            tok = np.zeros((b, 1), np.int32)
+            # pad rows carry slot == n_slots (see decode_step_paged)
+            row_slot = np.full((b,), self.ecfg.n_slots, np.int32)
+            poss = np.zeros((b,), np.int32)
+            lens = np.zeros((b,), np.int32)
+            tab = np.zeros((b, w), np.int32)
+            for r, (slot, req) in enumerate(order):
+                tok[r, 0] = req.generated[-1]
+                row_slot[r] = slot
+                poss[r] = req.pos
+                lens[r] = req.pos + 1  # dense decode attends k_pos <= pos
+                tab[r, : tables.shape[1]] = tables[r]
+                wp = req.pos // P
+                sid = n_pool + r
+                tab[r, wp] = sid
+                src_slot[sid] = slot
+                src_idx[sid] = wp
+            (tok, row_slot, poss, tab, lens, src_slot,
+             src_idx) = self._to_device(
+                tok, row_slot, poss, tab, lens, src_slot, src_idx
+            )
         logits, _ = decode_step_paged(
             self.cfg, self.params, tok, self._caches, poss, row_slot, tab,
             lens, src_slot, src_idx,
@@ -1917,7 +1950,8 @@ class ServingEngine:
         if self._paged_int8:
             self.paged_int8_ticks += 1
         # batch argmax on the device: ONE transfer back per tick
-        nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
+        with obs.span("engine.decode.sync"):
+            nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
         row_of = {slot: r for r, (slot, _) in enumerate(order)}
         return nxt[[row_of[slot] for slot, _ in active]]
 
@@ -1978,10 +2012,14 @@ class ServingEngine:
                     # capture the frozen pages' REAL KV values while the
                     # slot is still attached: if the policy later demotes
                     # them, the host tier compresses these bytes
-                    self._frozen_payloads[rid] = {
-                        idx: self._page_payload(req.slot, idx)
-                        for idx in self.kv.demotable_indices(rid)
-                    }
+                    pages = self.kv.demotable_indices(rid)
+                    with obs.span(
+                        "engine.payload_capture", rid=rid, pages=len(pages)
+                    ):
+                        self._frozen_payloads[rid] = {
+                            idx: self._tier_payload(req.slot, idx)
+                            for idx in pages
+                        }
                 self._release_slot(req)
         for rid in decision.resume:
             self._resume(rid)
@@ -2009,58 +2047,69 @@ class ServingEngine:
     def step(self) -> None:
         """Advance one tick: admit, prefill a chunk, decode the batch,
         then the policy/demotion passes; updates ``last_tick_cost``."""
-        stalls0 = self.stall_ticks
-        self._tick_prefill_tokens = 0
-        self._tick_decode_tokens = 0
-        self._admit()
-        self._prefill_tick()
-        kv_bytes_read = self._decode_tick()
-        # roofline-derived tick service time (modeled seconds): bytes
-        # moved this tick — weight stream + the KV pages of the requests
-        # actually decoded + prefill writes — over HBM bandwidth, vs
-        # FLOPs over peak, plus one PCIe page DMA per stall.  Straggler
-        # detection, placement scoring and the overload bench inherit
-        # hardware-meaningful units from here (deterministic — no wall
-        # clock in the simulation).
-        cost = self._tick_cost_model.tick_seconds(
-            decode_tokens=self._tick_decode_tokens,
-            prefill_tokens=self._tick_prefill_tokens,
-            kv_bytes_read=kv_bytes_read,
-            stall_events=self.stall_ticks - stalls0,
-        )
-        self.last_tick_cost = cost
-        self._tick_cost_count += 1
-        self._tick_cost_sum += cost
-        self._tick_cost_min = min(self._tick_cost_min, cost)
-        self._tick_cost_max = max(self._tick_cost_max, cost)
-        if len(self._tick_cost_values) < 64:
-            self._tick_cost_values.add(round(cost, 15))
-        period_ticks = max(
-            round(self.policy.period * self.ecfg.murs_period_ticks), 1
-        )
-        if self.tick % period_ticks == 0:
-            self._policy_pass()
-        self._proactive_demotion()
-        self._resolve_overcommit()
-        # advance the tier hierarchy: completed promotions swap back into
-        # page tables; pages a slot is still attached to get their
-        # (dequantized) values written back into the cache
-        for rid, idx, payload in self.kv.tick_tiers(float(self.tick)):
-            req = self.requests.get(rid)
-            if req is not None and req.slot >= 0 and payload is not None:
-                self._install_page_payload(req.slot, idx, payload)
-                self.kv.note_page_write(rid, idx, self.tick)
-        self._promotion_pass()
-        self.kv.reclaim()
-        if (
-            self.ecfg.prefix_cache
-            and self.kv.cache_evictions != self._pruned_at_evictions
-        ):
-            # drop KV snapshots no trie node references anymore
-            live = self.kv.live_snap_keys()
-            self._snaps = {k: v for k, v in self._snaps.items() if k in live}
-            self._pruned_at_evictions = self.kv.cache_evictions
-        self.tick += 1
+        with obs.span("engine.step", tick=self.tick):
+            stalls0 = self.stall_ticks
+            self._tick_prefill_tokens = 0
+            self._tick_decode_tokens = 0
+            with obs.span("engine.admit"):
+                self._admit()
+            with obs.span("engine.prefill"):
+                self._prefill_tick()
+            with obs.span("engine.decode"):
+                kv_bytes_read = self._decode_tick()
+            # roofline-derived tick service time (modeled seconds): bytes
+            # moved this tick — weight stream + the KV pages of the requests
+            # actually decoded + prefill writes — over HBM bandwidth, vs
+            # FLOPs over peak, plus one PCIe page DMA per stall.  Straggler
+            # detection, placement scoring and the overload bench inherit
+            # hardware-meaningful units from here (deterministic — no wall
+            # clock in the simulation).
+            cost = self._tick_cost_model.tick_seconds(
+                decode_tokens=self._tick_decode_tokens,
+                prefill_tokens=self._tick_prefill_tokens,
+                kv_bytes_read=kv_bytes_read,
+                stall_events=self.stall_ticks - stalls0,
+            )
+            self.last_tick_cost = cost
+            self._tick_cost_count += 1
+            self._tick_cost_sum += cost
+            self._tick_cost_min = min(self._tick_cost_min, cost)
+            self._tick_cost_max = max(self._tick_cost_max, cost)
+            period_ticks = max(
+                round(self.policy.period * self.ecfg.murs_period_ticks), 1
+            )
+            if self.tick % period_ticks == 0:
+                with obs.span("engine.policy"):
+                    self._policy_pass()
+            with obs.span("engine.demote"):
+                self._proactive_demotion()
+                self._resolve_overcommit()
+            with obs.span("engine.tiers"):
+                # advance the tier hierarchy: completed promotions swap back
+                # into page tables; pages a slot is still attached to get
+                # their (dequantized) values written back into the cache
+                for rid, idx, payload in self.kv.tick_tiers(float(self.tick)):
+                    req = self.requests.get(rid)
+                    if req is None or req.slot < 0 or payload is None:
+                        continue
+                    self.tier_h2d_bytes += self._install_page_payload(
+                        req.slot, idx, payload
+                    )
+                    self.kv.note_page_write(rid, idx, self.tick)
+                self._promotion_pass()
+            with obs.span("engine.reclaim"):
+                self.kv.reclaim()
+                if (
+                    self.ecfg.prefix_cache
+                    and self.kv.cache_evictions != self._pruned_at_evictions
+                ):
+                    # drop KV snapshots no trie node references anymore
+                    live = self.kv.live_snap_keys()
+                    self._snaps = {
+                        k: v for k, v in self._snaps.items() if k in live
+                    }
+                    self._pruned_at_evictions = self.kv.cache_evictions
+            self.tick += 1
 
     def _frozen_victims(self, require_pressure: bool) -> List[Request]:
         """Suspended requests whose frozen KV may demote, best victim
@@ -2205,7 +2254,7 @@ class ServingEngine:
             else:
                 for idx in reversed(self.kv.demotable_indices(rid)):
                     self.kv.demote_page(
-                        rid, idx, self._page_payload(r.slot, idx), now
+                        rid, idx, self._tier_payload(r.slot, idx), now
                     )
                 self._set_state(r, "offloaded")
                 self._release_slot(r)
@@ -2306,7 +2355,7 @@ class ServingEngine:
             victim.offloads += 1
             for idx in reversed(self.kv.demotable_indices(rid)):
                 payload = (
-                    self._page_payload(victim.slot, idx)
+                    self._tier_payload(victim.slot, idx)
                     if victim.slot >= 0
                     else None
                 )

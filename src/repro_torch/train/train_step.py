@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from .. import obs
 from ..configs.base import ArchConfig
 from ..dist.sharding import local_block, on_shards, shard, split_devices
 from ..models.transformer import forward, forward_hidden, unembed_weight
@@ -139,8 +140,11 @@ def value_and_grad(cfg: ArchConfig, params, batch, *,
         if not t.requires_grad:
             t.requires_grad_(True)
     with torch.enable_grad():
-        loss = lm_loss(cfg, params, batch, remat=remat, loss_chunk=loss_chunk)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with obs.span("train.forward"):
+            loss = lm_loss(cfg, params, batch, remat=remat,
+                           loss_chunk=loss_chunk)
+        with obs.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(treedef, grads)
@@ -169,34 +173,39 @@ def make_train_step(
     count.  The parameters and moments are updated in place."""
 
     def train_step(params, opt_state: adamw.AdamWState, batch):
-        batch = pin_batch(batch)
-        if microbatches == 1:
-            loss, grads = value_and_grad(cfg, params, batch, remat=remat,
-                                         loss_chunk=loss_chunk)
-        else:
-            n = next(iter(batch.values())).shape[0] // microbatches
-            loss = None
-            acc = None
-            for i in range(microbatches):
-                micro = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l, g = value_and_grad(cfg, params, micro, remat=remat,
-                                      loss_chunk=loss_chunk)
-                g_leaves, treedef = tree_flatten(g)
-                if acc is None:
-                    loss = l.float()
-                    acc = [x.float() for x in g_leaves]
-                else:
-                    loss = loss + l
-                    for a, x in zip(acc, g_leaves):
-                        a.add_(x.float())
-                del g, g_leaves
-            loss = loss / microbatches
-            for a in acc:
-                a.div_(microbatches)
-            grads = tree_unflatten(treedef, acc)
-        new_params, new_opt, gnorm = adamw.update(opt_cfg, grads, opt_state,
-                                                  params)
-        metrics = {"loss": loss, "grad_norm": gnorm, "step": new_opt.step}
-        return new_params, new_opt, metrics
+        with obs.span("train.step"):
+            batch = pin_batch(batch)
+            if microbatches == 1:
+                with obs.span("train.microbatch", index=0):
+                    loss, grads = value_and_grad(
+                        cfg, params, batch, remat=remat,
+                        loss_chunk=loss_chunk)
+            else:
+                n = next(iter(batch.values())).shape[0] // microbatches
+                loss = None
+                acc = None
+                for i in range(microbatches):
+                    with obs.span("train.microbatch", index=i):
+                        micro = {k: v[i * n:(i + 1) * n]
+                                 for k, v in batch.items()}
+                        l, g = value_and_grad(cfg, params, micro, remat=remat,
+                                              loss_chunk=loss_chunk)
+                        g_leaves, treedef = tree_flatten(g)
+                        if acc is None:
+                            loss = l.float()
+                            acc = [x.float() for x in g_leaves]
+                        else:
+                            loss = loss + l
+                            for a, x in zip(acc, g_leaves):
+                                a.add_(x.float())
+                        del g, g_leaves
+                loss = loss / microbatches
+                for a in acc:
+                    a.div_(microbatches)
+                grads = tree_unflatten(treedef, acc)
+            new_params, new_opt, gnorm = adamw.update(
+                opt_cfg, grads, opt_state, params)
+            metrics = {"loss": loss, "grad_norm": gnorm, "step": new_opt.step}
+            return new_params, new_opt, metrics
 
     return train_step
